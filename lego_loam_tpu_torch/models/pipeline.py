@@ -1,0 +1,133 @@
+"""Full SLAM pipeline: the reference's four ROS processes as two device
+stages driven by a thin host loop (counterpart of
+``lego_loam_tpu.models.pipeline``, per-scan mode).
+
+  * front-end, every scan: projection + segmentation + features +
+    scan-to-scan odometry + the pose fuse;
+  * back-end, every cfg.mapping_process_every scans: scan-to-map +
+    keyframe update.
+
+The host loop never waits on the card inside a scan except for one copy of
+the fused translation plus the packed stats at the end of process_scan.
+Loop closure, IMU, chunked replay and the pose graph are not ported yet:
+the constructor refuses a config that asks for them.
+"""
+
+from __future__ import annotations
+
+import time as _time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from lego_loam_tpu_torch.config import PipelineConfig
+from lego_loam_tpu_torch.models import mapping as mp
+from lego_loam_tpu_torch.models import odometry as odo
+from lego_loam_tpu_torch.models.fusion import fuse_pose
+from lego_loam_tpu_torch.ops.compaction import segment_scan
+from lego_loam_tpu_torch.ops.features import extract_features
+from lego_loam_tpu_torch.ops.projection import project_scan
+from lego_loam_tpu_torch.utils.math3d import Pose
+from lego_loam_tpu_torch.utils.precision import apply_f32_policy
+
+STAT_NAMES = ("n_valid_px", "n_ground", "n_segmented", "n_sharp", "n_flat")
+
+
+def frontend_step(ostate, xyz, valid, ring, bef_mapped: Pose, aft_mapped: Pose,
+                  cfg: PipelineConfig, use_ring: bool):
+    """scan -> features -> odometry pose -> fused pose.  Returns
+    (ostate, feats, opose, rel, fused, stats (5,) int32)."""
+    img = project_scan(xyz, valid, cfg, ring if use_ring else None)
+    packed, o_rel, ground, _ = segment_scan(img, cfg)
+    feats = extract_features(packed, o_rel, cfg)
+    ostate, opose, rel = odo.odometry_step(ostate, feats, cfg)
+    fused = aft_mapped.compose(bef_mapped.inverse().compose(opose))
+    stats = torch.stack([
+        img.valid.sum(), ground.sum(), packed.count.sum(),
+        feats.sharp.valid.sum(), feats.flat.valid.sum(),
+    ]).to(torch.int32)
+    return ostate, feats, opose, rel, fused, stats
+
+
+@dataclass
+class FrameResult:
+    odom_pose: Pose
+    fused_pose: Pose
+    mapped_pose: Pose | None
+    stats: dict
+    wall_ms: float
+
+
+class LegoLoamPipeline:
+    """Host loop.  Feed scans with process_scan(); poses come back in the
+    map frame of the first scan.  `device` is required: the pipeline runs
+    where its state lives (a CUDA device runs the kernels, the CPU their
+    plain versions)."""
+
+    def __init__(self, cfg: PipelineConfig, device):
+        if cfg.loop_closure_enabled:
+            raise NotImplementedError("loop closure is not ported yet")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        apply_f32_policy()
+        self.ostate = odo.init_state(cfg, self.device)
+        self.mstate = mp.init_state(cfg, self.device)
+        self.frame = 0
+        # host upper bound on mstate.n_kf: at most one insert per solve, so
+        # the device count is read only when this reaches capacity
+        self.n_kf_bound = 0
+        self.trajectory: list[np.ndarray] = []
+
+    def _maybe_compact(self) -> None:
+        cfg = self.cfg
+        if self.n_kf_bound < cfg.max_keyframes - 1:
+            return
+        self.n_kf_bound = int(self.mstate.n_kf)
+        if self.n_kf_bound >= cfg.max_keyframes - 1:
+            self.mstate = mp.compact_keyframes(self.mstate, cfg)
+            self.n_kf_bound = int(self.mstate.n_kf)
+
+    def process_scan(self, xyz, valid, ring=None, t: float | None = None
+                     ) -> FrameResult:
+        cfg = self.cfg
+        dev = self.device
+        t = float(t) if t is not None else self.frame * cfg.sensor.scan_period
+        t0 = _time.perf_counter()
+        use_ring = cfg.sensor.use_ring
+        if use_ring and ring is None:
+            raise ValueError(
+                f"sensor {cfg.sensor.name} expects a ring channel; pass "
+                "ring= or use an elevation-math preset (use_ring=False)")
+        xyz = torch.as_tensor(xyz, dtype=torch.float32, device=dev)
+        valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
+        ring_t = (torch.as_tensor(ring, dtype=torch.int32, device=dev)
+                  if ring is not None else None)
+
+        self.ostate, feats, opose, rel, fused, stats = frontend_step(
+            self.ostate, xyz, valid, ring_t, self.mstate.bef_mapped,
+            self.mstate.aft_mapped, cfg, use_ring)
+
+        mapped = None
+        if self.frame % cfg.mapping_process_every == 0:
+            self._maybe_compact()
+            mfeats = feats._replace(less_sharp=self.ostate.ref_corner,
+                                    less_flat=self.ostate.ref_surf)
+            self.mstate, mapped = mp.mapping_step(self.mstate, mfeats, opose,
+                                                  t, cfg)
+            self.n_kf_bound += 1
+            fused = fuse_pose(self.mstate, opose)
+
+        # the one host copy per scan: fused translation + packed stats
+        host = torch.cat([fused.t, stats.to(torch.float32)]).tolist()
+        self.trajectory.append(np.asarray(host[:3], np.float32))
+        wall_ms = (_time.perf_counter() - t0) * 1e3
+        self.frame += 1
+        return FrameResult(
+            odom_pose=opose, fused_pose=fused, mapped_pose=mapped,
+            stats=dict(zip(STAT_NAMES, (int(v) for v in host[3:]))),
+            wall_ms=wall_ms)
+
+    def keyframe_poses(self) -> np.ndarray:
+        n = int(self.mstate.n_kf)
+        return self.mstate.kf_t[:n].cpu().numpy()

@@ -1,0 +1,83 @@
+"""Batched nearest-neighbour search (PCL KdTreeFLANN replacement;
+counterpart of ``lego_loam_tpu.ops.knn``).
+
+Dense brute force: ||q - r||^2 = |q|^2 + |r|^2 - 2 q.r, then a masked
+argmin (odometry associations) or an exact k-NN (map 5-NN).  The exact
+k-NN is kernel K3 (``csrc/knn.cu``) on a CUDA tensor; on a CPU tensor it is
+the distance matrix plus a stable sort, which breaks ties to the lowest
+index like ``lax.top_k``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lego_loam_tpu_torch.kernels import build as kb
+
+_INF = 1.0e30
+MAX_K = 8
+
+
+def sq_dist_matrix(query: torch.Tensor, ref: torch.Tensor,
+                   ref_valid: torch.Tensor) -> torch.Tensor:
+    """(Q, 3) x (N, 3) -> (Q, N) squared distances; invalid refs get 1e30."""
+    qq = torch.sum(query * query, dim=1, keepdim=True)
+    rr = torch.sum(ref * ref, dim=1)
+    d2 = torch.clamp(qq + rr[None, :] - (2.0 * query) @ ref.T, min=0.0)
+    return torch.where(ref_valid[None, :], d2, _INF)
+
+
+def masked_argmin(d2: torch.Tensor, mask: torch.Tensor | None = None):
+    """Row-wise argmin (first index on ties) with an optional (Q, N) mask.
+    Returns (idx int64, val)."""
+    if mask is not None:
+        d2 = torch.where(mask, d2, _INF)
+    idx = torch.argmin(d2, dim=1)
+    return idx, torch.gather(d2, 1, idx[:, None])[:, 0]
+
+
+def knn_plain(query, ref, ref_valid, k: int, query_tile: int = 0):
+    """Exact k-NN from the distance matrix, in query tiles of `query_tile`
+    rows (0 = one tile).  Returns (idx (Q, k) int32, d2 (Q, k)) ascending."""
+    Q = query.shape[0]
+    step = query_tile if query_tile and Q > query_tile else max(Q, 1)
+    idx, d2 = [], []
+    for q0 in range(0, Q, step):
+        d = sq_dist_matrix(query[q0: q0 + step], ref, ref_valid)
+        s = torch.sort(d, dim=1, stable=True)
+        idx.append(s.indices[:, :k].to(torch.int32))
+        d2.append(s.values[:, :k])
+    return torch.cat(idx), torch.cat(d2)
+
+
+def knn(query, ref, ref_valid, k: int, query_tile: int = 0):
+    """k nearest neighbours per query point (K3 on CUDA tensors).
+
+    query (Q, 3) f32, ref (N, 3) f32, ref_valid (N,) bool, 1 <= k <= 8.
+    Returns (idx (Q, k) int32, d2 (Q, k) f32), ascending; invalid refs rank
+    last with d2 ~ 1e30.  CPU tensors run :func:`knn_plain` (query_tile
+    bounds its memory; the kernel needs no tiling)."""
+    if not query.is_cuda:
+        return knn_plain(query, ref, ref_valid, k, query_tile)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"knn kernel supports 1 <= k <= {MAX_K}, got {k}")
+    Q, N = query.shape[0], ref.shape[0]
+    dev = query.device
+    if Q == 0 or N == 0:
+        raise ValueError(f"knn kernel needs Q, N >= 1, got {Q}, {N}")
+    kb.require(query, "query", torch.float32, (Q, 3), dev)
+    kb.require(ref, "ref", torch.float32, (N, 3), dev)
+    kb.require(ref_valid, "ref_valid", torch.bool, (N,), dev)
+    # reference tiles the kernel stages: (x, y, z, |r|^2 + invalid * 1e30)
+    rr = torch.sum(ref * ref, dim=1) + torch.where(ref_valid, 0.0, _INF)
+    ref4 = torch.cat([ref, rr[:, None]], dim=1).contiguous()
+    idx = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    d2 = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    kb.check(kb.library().lego_knn(
+        query.data_ptr(), ref4.data_ptr(), Q, N, k, idx.data_ptr(),
+        d2.data_ptr(), kb.stream_of(query)), "knn")
+    knn.launches += 1
+    return idx, d2
+
+
+knn.launches = 0
