@@ -18,7 +18,12 @@ Phases (any failure exits non-zero before the result lines):
      (the scheme of tests/test_knn_pallas.py).  Each kernel and its plain
      version are timed with CUDA events after a warm-up (device time: the
      host's launch work is hidden behind a queued device sleep); each
-     kernel's host-clock time per call, launch included, is printed beside;
+     kernel's host-clock time per call, launch included, is printed beside,
+     and so are its bound (the larger of its bytes over the card's memory
+     rate and its operations over the FP32 rate, from this run's inputs) and
+     the kernel's share of it.  K3 also prints its split count and grid, and,
+     as information only, the time of torch.topk(torch.cdist(q, r)), a
+     two-call composition that the port never calls;
   4. the slice: LegoLoamPipeline(config_for("vlp16", deskew=False), "cuda")
      at the full default capacities (max_keyframes=4096) over 30 scans of a
      circle course with 1 cm range noise; asserts that all three kernels
@@ -50,6 +55,11 @@ WARM_SCANS = 6          # scans before the timed window
 SYNC_SCANS = 6          # scans at the end run under sync-debug counting
 ATE_BOUND = 0.15        # m, the bound of tests/test_pipeline.py
 SLEEP_CYCLES = 40_000_000   # ~20 ms of device clock ahead of each timing
+# H100 SXM peaks at 700 W (on-chip-measurement guide): HBM3 and float32
+# outside the tensor cores; the kernels' 32-bit integer and compare work is
+# counted against the same 32-bit lane rate
+MEM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -96,6 +106,18 @@ def call_ms(torch, fn, reps: int) -> float:
     return (time.perf_counter() - t) * 1e3 / reps
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes: int, ops: float):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that moves `n_bytes` once and does `ops` 32-bit operations."""
+    t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def make_scans(cfg, world, poses, noise=0.01):
     from lego_loam_tpu_torch.io import synthetic as syn
 
@@ -121,6 +143,9 @@ def check_k1(torch, cfg, imgs):
             fail(f"K1 label_prop differs from its plain version at "
                  f"{int((got != ref).sum())} pixels")
     kernel = lambda: seg_ops.propagate_labels(*args, ms)  # noqa: E731
+    # each input read once, the labels written once; ~8 min / select ops a
+    # pixel a sweep (4 neighbours, 4 segmented scans)
+    b_ms, b_by = bound(nbytes(*args, ref), 8 * ref.numel() * sweeps[-1])
     return {
         "name": "label_prop", "route": "cuda",
         "source": "lego_loam_tpu_torch/csrc/label_prop.cu",
@@ -129,6 +154,7 @@ def check_k1(torch, cfg, imgs):
         "ms": cuda_ms(torch, kernel, 50),
         "call_ms": call_ms(torch, kernel, 50),
         "plain_ms": cuda_ms(torch, lambda: seg_ops.propagate_labels_plain(*args, ms), 5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }, f"equal on {len(imgs)} scans, sweeps {sweeps[::-1]}"
 
 
@@ -154,6 +180,11 @@ def check_k2(torch, cfg, imgs):
         if 0 in counts[-1]:
             fail("K2 check scan produced no features")
     kernel = lambda: fops.pick_features(*args)  # noqa: E731
+    # each input read once, labels and picks written once; a compare and a
+    # select a cell for each of the n_corner + n_surf pick steps
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    b_ms, b_by = bound(nbytes(*tensors, lab, pick),
+                       2 * lab.numel() * (args[-3] + args[-1]))
     return {
         "name": "pick_features", "route": "cuda",
         "source": "lego_loam_tpu_torch/csrc/pick_features.cu",
@@ -162,12 +193,14 @@ def check_k2(torch, cfg, imgs):
         "ms": cuda_ms(torch, kernel, 50),
         "call_ms": call_ms(torch, kernel, 50),
         "plain_ms": cuda_ms(torch, lambda: fops.pick_features_plain(*args), 5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }, f"equal on {len(imgs)} scans, (sharp, flat) picks {counts[::-1]}"
 
 
 def knn_case(torch, query, ref, valid, k=5):
-    """Kernel vs plain k-NN on one shape; returns (max_abs_err, ms, plain_ms,
-    share of identical indices, call_ms)."""
+    """Kernel vs plain k-NN on one shape; returns a dict of max_abs_err, ms,
+    plain_ms, shares of identical indices and bit-equal distances, call_ms,
+    cdist_topk_ms, and the bound of this shape and data."""
     from lego_loam_tpu_torch.ops import knn as knn_ops
 
     idx, d2 = knn_ops.knn(query, ref, valid, k)
@@ -192,10 +225,20 @@ def knn_case(torch, query, ref, valid, k=5):
         fail("K3 knn indices do not match their distances")
     err = float((d2[real] - pd2[real]).abs().max())
     same_idx = float((idx == pidx).float().mean())
+    same_d2 = float((d2[real] == pd2[real]).float().mean())
     kernel = lambda: knn_ops.knn(query, ref, valid, k)  # noqa: E731
-    ms = cuda_ms(torch, kernel, 20)
-    plain_ms = cuda_ms(torch, lambda: knn_ops.knn_plain(query, ref, valid, k), 3)
-    return err, ms, plain_ms, same_idx, call_ms(torch, kernel, 20)
+    # each input read once, (idx, d2) written once; 8 flops (3 sub, 3 mul,
+    # 2 add) a query for each valid reference
+    b_ms, b_by = bound(nbytes(query, ref, valid, idx, d2),
+                       8 * query.shape[0] * int(valid.sum()))
+    return {
+        "err": err, "same_idx": same_idx, "same_d2": same_d2,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "ms": cuda_ms(torch, kernel, 20), "call_ms": call_ms(torch, kernel, 20),
+        "plain_ms": cuda_ms(torch, lambda: knn_ops.knn_plain(query, ref, valid, k), 3),
+        "cdist_topk_ms": cuda_ms(torch, lambda: torch.topk(
+            torch.cdist(query, ref), k, largest=False), 3),
+    }
 
 
 def check_k3(torch, cfg, world, dev):
@@ -203,6 +246,7 @@ def check_k3(torch, cfg, world, dev):
     in the world frame, voxel-downsampled to the map capacities; queries =
     another scan downsampled to the scan capacities."""
     from lego_loam_tpu_torch.io import synthetic as syn
+    from lego_loam_tpu_torch.ops import knn as knn_ops
     from lego_loam_tpu_torch.ops.voxel import voxel_downsample
 
     poses = syn.circle_trajectory(7, radius=12.0, arc=0.35 * np.pi)
@@ -227,22 +271,33 @@ def check_k3(torch, cfg, world, dev):
              cfg.leaf_scan_surf, cfg.max_scan_surf_ds)):
         ref, ref_valid = voxel_downsample(world_pts, wv, leaf_map, n_map)
         query, _ = voxel_downsample(q, qv, leaf_q, n_q)
-        out[tag] = knn_case(torch, query.contiguous(), ref.contiguous(),
-                            ref_valid.contiguous())
+        r = out[tag] = knn_case(torch, query.contiguous(), ref.contiguous(),
+                                ref_valid.contiguous())
+        S = knn_ops.knn_splits(n_q, n_map)
+        tiles = -(-n_q // knn_ops.QUERY_TILE)
         print(f"  K3 knn {tag}: {n_q} x {n_map}, {int(ref_valid.sum())} valid "
-              f"refs: max|d2 err| {out[tag][0]:.3g}, kernel {out[tag][1]:.4f} ms "
-              f"(call {out[tag][4]:.4f} ms), plain {out[tag][2]:.4f} ms, "
-              f"identical indices {100 * out[tag][3]:.2f} %")
+              f"refs: max|d2 err| {r['err']:.3g}, kernel {r['ms']:.4f} ms "
+              f"(call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+              f"identical indices {100 * r['same_idx']:.2f} %, bit-equal "
+              f"distances {100 * r['same_d2']:.2f} %")
+        print(f"  K3 knn {tag}: S = {S} splits of {-(-n_map // S)} refs, grid "
+              f"{tiles} x {S} = {tiles * S} blocks"
+              + (" + a merge pass, one thread a query" if S > 1 else "")
+              + f"; bound {r['bound_ms']:.5f} ms ({r['bound_by']}), kernel at "
+              f"{100 * r['bound_ms'] / r['ms']:.2f} % of it; information only: "
+              f"topk(cdist(q, r)), a two-call composition the port never "
+              f"calls, {r['cdist_topk_ms']:.4f} ms")
     c, s = out["corner"], out["surf"]
     return {
         "name": "knn", "route": "cuda",
         "source": "lego_loam_tpu_torch/csrc/knn.cu",
         "replaces": "lego_loam_tpu/ops/knn_pallas.py:81",
-        "max_abs_err": max(c[0], s[0]),
-        "ms": s[1], "call_ms": s[4], "plain_ms": s[2],
+        "max_abs_err": max(c["err"], s["err"]),
+        "ms": s["ms"], "call_ms": s["call_ms"], "plain_ms": s["plain_ms"],
+        "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": None,
     }, (f"ms/plain_ms at {cfg.max_scan_surf_ds}x{cfg.max_map_surf}; at "
-        f"{cfg.max_scan_corner_ds}x{cfg.max_map_corner}: kernel {c[1]:.4f} ms, "
-        f"plain {c[2]:.4f} ms")
+        f"{cfg.max_scan_corner_ds}x{cfg.max_map_corner}: kernel {c['ms']:.4f} ms, "
+        f"plain {c['plain_ms']:.4f} ms")
 
 
 def run_slice(torch, cfg, scans, poses, dev):
@@ -373,7 +428,9 @@ def main() -> None:
                     check_k3(torch, cfg, world, dev)):
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms (call {r['call_ms']:.4f} "
               f"ms), plain {r['plain_ms']:.4f} ms, max|err| "
-              f"{r['max_abs_err']:.3g} ({note})")
+              f"{r['max_abs_err']:.3g}, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.2f} % of "
+              f"bound ({note})")
         results.append(r)
 
     sl = run_slice(torch, cfg, scans, poses, dev)
@@ -396,7 +453,8 @@ def main() -> None:
     print(json.dumps({"slice": sl, "card": card}))
     print(json.dumps({"kernels": [
         {key: r[key] for key in ("name", "route", "source", "replaces",
-                                 "launches", "max_abs_err", "ms", "plain_ms")}
+                                 "launches", "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}
         for r in results]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -39,8 +39,8 @@ _SIGNATURES = {
     # curv, corner_base, surf_base, picked0, reach_l, reach_r, sp, ep, ok,
     # labels, picked, R, W, S, n_corner, n_sharp, n_surf, stream
     "lego_pick_features": [_P] * 11 + [_I] * 6 + [_P],
-    # query, ref4, Q, N, k, idx, d2, stream
-    "lego_knn": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # query, ref, ref_valid, Q, N, k, S, scratch, idx, d2, stream
+    "lego_knn": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

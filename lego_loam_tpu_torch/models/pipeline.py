@@ -61,11 +61,11 @@ class FrameResult:
 
 class LegoLoamPipeline:
     """Host loop.  Feed scans with process_scan(); poses come back in the
-    map frame of the first scan.  `device` is required: the pipeline runs
-    where its state lives (a CUDA device runs the kernels, the CPU their
-    plain versions)."""
+    map frame of the first scan.  The pipeline runs where its state lives,
+    on `device`: the card by default, where the kernels run; pass
+    ``device="cpu"`` for their plain versions."""
 
-    def __init__(self, cfg: PipelineConfig, device):
+    def __init__(self, cfg: PipelineConfig, device="cuda"):
         if cfg.loop_closure_enabled:
             raise NotImplementedError("loop closure is not ported yet")
         self.cfg = cfg

@@ -6,6 +6,9 @@ argmin (odometry associations) or an exact k-NN (map 5-NN).  The exact
 k-NN is kernel K3 (``csrc/knn.cu``) on a CUDA tensor; on a CPU tensor it is
 the distance matrix plus a stable sort, which breaks ties to the lowest
 index like ``lax.top_k``.
+
+K3 splits the reference set across blocks and merges the per-split top-k
+lists in a second pass; :func:`knn_splits` picks the split count.
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ from lego_loam_tpu_torch.kernels import build as kb
 
 _INF = 1.0e30
 MAX_K = 8
+QUERY_TILE = 128        # queries a block of K3's first pass (knn.cu kThreads)
+MIN_SPLIT = 256         # fewest references a split
+TARGET_BLOCKS = 4 * 132     # up to 4 blocks on each of an H100's 132 SMs
 
 
 def sq_dist_matrix(query: torch.Tensor, ref: torch.Tensor,
@@ -50,6 +56,18 @@ def knn_plain(query, ref, ref_valid, k: int, query_tile: int = 0):
     return torch.cat(idx), torch.cat(d2)
 
 
+def knn_splits(Q: int, N: int) -> int:
+    """Reference splits S of K3's grid for Q queries and N references: the
+    most that keep (query tiles x S) <= TARGET_BLOCKS, one wave of blocks
+    that all run at once, with at least MIN_SPLIT references a split (so
+    S = 1 for N < 2 * MIN_SPLIT) and none empty.  Fewer splits mean fewer
+    per-split lists to fill and merge.  The kernel's splits are
+    ceil(N / S) references long."""
+    tiles = -(-Q // QUERY_TILE)
+    s = max(1, min(TARGET_BLOCKS // tiles, N // MIN_SPLIT))
+    return -(-N // -(-N // s))
+
+
 def knn(query, ref, ref_valid, k: int, query_tile: int = 0):
     """k nearest neighbours per query point (K3 on CUDA tensors).
 
@@ -68,13 +86,15 @@ def knn(query, ref, ref_valid, k: int, query_tile: int = 0):
     kb.require(query, "query", torch.float32, (Q, 3), dev)
     kb.require(ref, "ref", torch.float32, (N, 3), dev)
     kb.require(ref_valid, "ref_valid", torch.bool, (N,), dev)
-    # reference tiles the kernel stages: (x, y, z, |r|^2 + invalid * 1e30)
-    rr = torch.sum(ref * ref, dim=1) + torch.where(ref_valid, 0.0, _INF)
-    ref4 = torch.cat([ref, rr[:, None]], dim=1).contiguous()
+    S = knn_splits(Q, N)
+    # per-split (rank, index) lists of the first pass, merged by the second
+    scratch = (torch.empty((2, S, k, Q), dtype=torch.float32, device=dev)
+               if S > 1 else None)
     idx = torch.empty((Q, k), dtype=torch.int32, device=dev)
     d2 = torch.empty((Q, k), dtype=torch.float32, device=dev)
     kb.check(kb.library().lego_knn(
-        query.data_ptr(), ref4.data_ptr(), Q, N, k, idx.data_ptr(),
+        query.data_ptr(), ref.data_ptr(), ref_valid.data_ptr(), Q, N, k, S,
+        None if scratch is None else scratch.data_ptr(), idx.data_ptr(),
         d2.data_ptr(), kb.stream_of(query)), "knn")
     knn.launches += 1
     return idx, d2

@@ -3,11 +3,14 @@
 Skipped without a CUDA device (the `cuda` marker; decided inside the
 fixture).  Run on a machine with an H100:
 
-    python -m pytest tests/test_torch_kernels_cuda.py -q
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
 K1 (label propagation) and K2 (feature picks) must match exactly; K3 (k-NN)
 to rtol 1e-4 / atol 1e-3 on distances with every returned index a valid
-point at its distance (tests/test_knn_pallas.py's scheme).  chip_smoke.py
+point at its distance (tests/test_knn_pallas.py's scheme), on shapes that
+exercise its split / merge passes: ragged and single splits, partial query
+blocks, k = 1 and 8, sentinel slots, and a duplicate point across splits
+(the lower index first, as in the plain version).  chip_smoke.py
 runs the same checks at the main path's full shapes.
 """
 
@@ -66,22 +69,61 @@ def test_pick_kernel_matches_plain(img):
     assert int((lab == 2).sum()) > 0 and int((lab == -1).sum()) > 0
 
 
-@pytest.mark.parametrize("q_n,r_n,k", [(100, 300, 5), (512, 513, 8),
-                                       (1024, 8192, 5), (4096, 32768, 5)])
-def test_knn_kernel_matches_plain(dev, q_n, r_n, k):
+@pytest.mark.parametrize("q_n,r_n,k,n_valid,dup", [
+    (100, 300, 5, None, False), (512, 513, 8, None, False),
+    (1024, 8192, 5, None, False), (4096, 32768, 5, None, False),
+    (300, 1000, 5, None, False),    # N not a multiple of the split
+    (200, 100, 5, None, False),     # N within one split: S = 1, no merge pass
+    (37, 1000, 5, None, False),     # Q under one block of 128 queries
+    (37, 1000, 1, None, False), (300, 4000, 8, None, False),
+    (100, 1000, 5, 3, False),       # fewer valid references than k
+    (100, 1000, 5, 0, False),       # no valid reference
+    (256, 4096, 5, None, True),     # one point at indices 5 and N - 3
+])
+def test_knn_kernel_matches_plain(dev, q_n, r_n, k, n_valid, dup):
     rng = np.random.default_rng(q_n + k)
-    q = torch.as_tensor((rng.standard_normal((q_n, 3)) * 20).astype(np.float32), device=dev)
-    r = torch.as_tensor((rng.standard_normal((r_n, 3)) * 20).astype(np.float32), device=dev)
-    valid = torch.as_tensor(rng.random(r_n) > 0.2, device=dev)
+    qn = (rng.standard_normal((q_n, 3)) * 20).astype(np.float32)
+    rn = (rng.standard_normal((r_n, 3)) * 20).astype(np.float32)
+    if n_valid is None:
+        vn = rng.random(r_n) > 0.2
+    else:
+        vn = np.zeros(r_n, dtype=bool)
+        vn[rng.choice(r_n, n_valid, replace=False)] = True
+    S = knn.knn_splits(q_n, r_n)
+    if dup:
+        # the duplicate sits in the first and the last split, alone within
+        # 4 m, and half the queries lie within centimetres of it
+        split = -(-r_n // S)
+        assert S > 1 and 5 // split != (r_n - 3) // split
+        p = np.array([3.0, -2.0, 1.0], dtype=np.float32)
+        off = rn - p
+        dist = np.linalg.norm(off, axis=1, keepdims=True)
+        rn = np.where(dist < 4.0, p + off / np.maximum(dist, 1e-3) * 4.0, rn)
+        rn[[5, r_n - 3]] = p
+        vn[[5, r_n - 3]] = True
+        qn[: q_n // 2] = p + rng.standard_normal((q_n // 2, 3)) * 0.05
+    q, r, valid = (torch.as_tensor(a, device=dev) for a in
+                   (qn, rn.astype(np.float32), vn))
     n = knn.knn.launches
     idx, d2 = knn.knn(q, r, valid, k)
     assert knn.knn.launches == n + 1
     pidx, pd2 = knn.knn_plain(q, r, valid, k)
     torch.testing.assert_close(d2, pd2, rtol=1e-4, atol=1e-3)
+    real = pd2 < 1e29                     # slots with a valid neighbour
+    assert torch.equal(real, d2 < 1e29)
+    assert bool((real.sum(1) == min(k, int(vn.sum()))).all())
+    # sentinel slots: the lowest-index invalid references, as in plain
+    assert torch.equal(idx[~real], pidx[~real])
     il = idx.long()
-    assert bool(valid[il].all())
+    assert bool(valid[il[real]].all())
     d_true = ((q[:, None, :] - r[il]) ** 2).sum(-1)
-    torch.testing.assert_close(d_true, d2, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(d_true[real], d2[real], rtol=1e-4, atol=1e-3)
+    if dup:
+        near = slice(0, q_n // 2)
+        expect = torch.tensor([5, r_n - 3], dtype=torch.int32, device=dev)
+        assert bool((idx[near, :2] == expect).all())
+        assert torch.equal(idx[near, :2], pidx[near, :2])
+        assert torch.equal(d2[near, 0], d2[near, 1])
 
 
 def test_wrappers_reject_bad_inputs(dev):

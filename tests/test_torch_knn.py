@@ -59,6 +59,23 @@ def test_duplicate_points_take_lowest_indices():
     assert (idx.numpy() == np.arange(5)).all()
 
 
+@pytest.mark.parametrize("q_n,r_n,s_n", [(4096, 32768, 16), (1024, 8192, 32),
+                                         (100, 300, 1), (200, 600, 2),
+                                         (37, 1000, 3), (5000, 32769, 13),
+                                         (100_000, 4096, 1)])
+def test_knn_splits_fill_one_wave_without_empty_splits(q_n, r_n, s_n):
+    S = tknn.knn_splits(q_n, r_n)
+    assert S == s_n
+    split = -(-r_n // S)                  # the kernel's split length
+    assert (S - 1) * split < r_n <= S * split
+    assert S == 1 or split >= tknn.MIN_SPLIT
+    tiles = -(-q_n // tknn.QUERY_TILE)
+    assert tiles * S <= max(tknn.TARGET_BLOCKS, tiles)
+    # one split more would overfill the wave or shorten splits below MIN_SPLIT
+    assert (tiles * (S + 1) > tknn.TARGET_BLOCKS
+            or -(-r_n // (S + 1)) < tknn.MIN_SPLIT or r_n // tknn.MIN_SPLIT <= S)
+
+
 def test_masked_argmin_matches_jnp():
     from lego_loam_tpu.ops.knn import masked_argmin as jma
     from lego_loam_tpu.ops.knn import sq_dist_matrix as jsq

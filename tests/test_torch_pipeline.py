@@ -68,3 +68,14 @@ def test_pipeline_requires_ported_features():
                                    np.array([0.0, 0.0, 1.6]), cfg.sensor)
     with pytest.raises(NotImplementedError):
         pipe.process_scan(xyz, valid, ring)
+
+
+def test_pipeline_runs_on_the_card_by_default():
+    import inspect
+
+    default = inspect.signature(LegoLoamPipeline).parameters["device"].default
+    assert torch.device(default).type == "cuda"
+    if not torch.cuda.is_available():
+        # no quiet fallback to the CPU: without a card the default refuses
+        with pytest.raises((AssertionError, RuntimeError)):
+            LegoLoamPipeline(config_for("vlp16", **SMALL))
