@@ -55,7 +55,7 @@ WARM_SCANS = 6          # scans before the timed window
 SYNC_SCANS = 6          # scans at the end run under sync-debug counting
 ATE_BOUND = 0.15        # m, the bound of tests/test_pipeline.py
 SLEEP_CYCLES = 40_000_000   # ~20 ms of device clock ahead of each timing
-# H100 SXM peaks at 700 W (on-chip-measurement guide): HBM3 and float32
+# H100 SXM peaks at 700 W (NVIDIA's H100 datasheet): HBM3 and float32
 # outside the tensor cores; the kernels' 32-bit integer and compare work is
 # counted against the same 32-bit lane rate
 MEM_BYTES_PER_S = 3.35e12
