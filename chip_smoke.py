@@ -11,7 +11,8 @@ Phases (any failure exits non-zero before the result lines):
   2. build: nvcc builds the three kernels of csrc/ (sm_90a) and prints the
      time and the register / shared-memory use ptxas reports;
   3. kernels against their plain PyTorch versions on the card, on inputs
-     from real synthetic VLP-16 scans at the shapes of the main path:
+     from real synthetic VLP-16 scans at the shapes of the main path (and
+     K1 at every sensor preset, below):
      K1 label propagation and K2 feature picks must match exactly; K3 k-NN
      at (1024 x 8192) and (4096 x 32768), k=5, must match the distances to
      rtol 1e-4 / atol 1e-3 and return true neighbours of those distances
@@ -20,22 +21,36 @@ Phases (any failure exits non-zero before the result lines):
      host's launch work is hidden behind a queued device sleep); each
      kernel's host-clock time per call, launch included, is printed beside,
      and so are its bound (the larger of its bytes over the card's memory
-     rate and its operations over the FP32 rate, from this run's inputs) and
-     the kernel's share of it.  K3 also prints its split count and grid, and,
-     as information only, the time of torch.topk(torch.cdist(q, r)), a
-     two-call composition that the port never calls;
+     rate and its operations over the FP32 rate, from this run's inputs; K1's
+     is its bytes alone) and the kernel's share of it.  K3 also prints its
+     split count and grid, and, as information only, the time of
+     torch.topk(torch.cdist(q, r)), a two-call composition that the port
+     never calls;
   4. the slice: LegoLoamPipeline(config_for("vlp16", deskew=False), "cuda")
      at the full default capacities (max_keyframes=4096) over 30 scans of a
      circle course with 1 cm range noise; asserts that all three kernels
      were launched on that path and that the fused-pose ATE is under
      0.15 m; prints steady-state scans/s, per-stage ms, host syncs per scan
-     and peak device memory.
+     and peak device memory;
+  5. the HDL-64E path (KITTI's sensor): config_for("hdl64e", deskew=False)
+     at its default, ring-scaled capacities, 9 scans (3 mapping solves) of
+     tests/test_hdl64e.py's course with 2 cm range noise, each point moved
+     half a row up into the middle of its elevation row (see mid_row), fed
+     without a ring channel (rows from elevation math); asserts that all
+     three kernels, K1 among them, were launched on it and that the ATE is
+     under tests/test_hdl64e.py's 0.2 m; prints the same numbers as the
+     slice.
+
+K1 is also held against its plain version, and timed beside its bound, on
+one synthetic scan of each other sensor preset (OS1-16, HDL-32E, OS1-64,
+HDL-64E, VLS-128), with its block count and links across tiles.
 
 deskew=False is the setting for motion-free scans: the raycaster casts
 every scan from one pose.  Every other knob is the default PipelineConfig.
 
-Prints the slice's numbers as one JSON line, then the kernel results as
-{"kernels": [...]}, and as the last line {"ok": true, "device": {...}}.
+Prints the slice's and the HDL-64E path's numbers and K1's at each preset
+as one JSON line, then the kernel results as {"kernels": [...]} (K1 at
+VLP-16's shape), and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -54,6 +69,11 @@ N_SCANS = 30
 WARM_SCANS = 6          # scans before the timed window
 SYNC_SCANS = 6          # scans at the end run under sync-debug counting
 ATE_BOUND = 0.15        # m, the bound of tests/test_pipeline.py
+# the HDL-64E path: KITTI's sensor, rows from elevation math (no ring
+# channel), the course and bound of tests/test_hdl64e.py, 3 mapping solves
+HDL_SCANS, HDL_WARM, HDL_SYNC = 9, 3, 1
+HDL_ATE_BOUND = 0.2     # m, the bound of tests/test_hdl64e.py
+K1_PRESETS = ("os1_16", "hdl32e", "os1_64", "hdl64e", "vls128")
 SLEEP_CYCLES = 40_000_000   # ~20 ms of device clock ahead of each timing
 # H100 SXM peaks at 700 W (NVIDIA's H100 datasheet): HBM3 and float32
 # outside the tensor cores; the kernels' 32-bit integer and compare work is
@@ -126,36 +146,88 @@ def make_scans(cfg, world, poses, noise=0.01):
             for k, (R, t) in enumerate(poses)]
 
 
-def check_k1(torch, cfg, imgs):
-    """K1 on every image must equal its plain version; timed on the first."""
+def mid_row(xyz, sensor):
+    """Each point moved half an elevation row up, range and azimuth kept.
+    The raycaster casts each ring at the very elevation where two rows of
+    the elevation math meet, so without this the row of every point of an
+    elevation-math preset would hang on the last bit of atan2."""
+    p = xyz.astype(np.float64)
+    rho = np.hypot(p[:, 0], p[:, 1])
+    rng = np.hypot(rho, p[:, 2])
+    el = np.arctan2(p[:, 2], rho) + np.radians(0.5 * sensor.ang_res_y)
+    az = np.arctan2(p[:, 1], p[:, 0])
+    return np.stack([rng * np.cos(el) * np.cos(az), rng * np.cos(el) * np.sin(az),
+                     rng * np.sin(el)], axis=1).astype(np.float32)
+
+
+def preset_image(torch, name, dev):
+    """One synthetic scan of a sensor preset, projected on the card."""
+    from lego_loam_tpu_torch import config_for
+    from lego_loam_tpu_torch.io import synthetic as syn
+    from lego_loam_tpu_torch.ops.projection import project_scan
+
+    cfg = config_for(name)
+    xyz, valid, ring = syn.raycast(syn.default_world(seed=0), np.eye(3),
+                                   np.array([1.0, -2.0, 1.7]), cfg.sensor,
+                                   noise=0.01, rng=np.random.default_rng(7))
+    if cfg.sensor.use_ring:
+        ring = torch.as_tensor(ring, device=dev)
+    else:
+        xyz, ring = mid_row(xyz, cfg.sensor), None
+    return cfg, project_scan(torch.as_tensor(xyz, device=dev),
+                             torch.as_tensor(valid, device=dev), cfg, ring)
+
+
+def k1_case(torch, cfg, img):
+    """K1 on one image: must equal its plain version; timed, with its bound
+    (each input read once, the labels written once)."""
+    from lego_loam_tpu_torch.kernels import build as kb
     from lego_loam_tpu_torch.ops import segmentation as seg_ops
     from lego_loam_tpu_torch.ops.ground import mark_ground
 
     ms = cfg.label_prop_max_sweeps
-    sweeps = []
-    for img in reversed(imgs):          # ends with imgs[0]'s args, timed below
-        args = seg_ops.label_inputs(*seg_ops.build_edges(img, mark_ground(img, cfg), cfg))
-        got = seg_ops.propagate_labels(*args, ms)
-        ref = seg_ops.propagate_labels_plain(*args, ms)
-        torch.cuda.synchronize()
-        sweeps.append(int(seg_ops.propagate_labels.last_sweeps))
-        if not torch.equal(got, ref):
-            fail(f"K1 label_prop differs from its plain version at "
-                 f"{int((got != ref).sum())} pixels")
+    args = seg_ops.label_inputs(*seg_ops.build_edges(img, mark_ground(img, cfg), cfg))
+    got = seg_ops.propagate_labels(*args, ms)
+    links = int(seg_ops.propagate_labels.last_links)
+    ref = seg_ops.propagate_labels_plain(*args, ms)
+    torch.cuda.synchronize()
+    R, H = ref.shape
+    if not torch.equal(got, ref):
+        fail(f"K1 label_prop differs from its plain version at "
+             f"{int((got != ref).sum())} pixels of a {R}x{H} image")
     kernel = lambda: seg_ops.propagate_labels(*args, ms)  # noqa: E731
-    # each input read once, the labels written once; ~8 min / select ops a
-    # pixel a sweep (4 neighbours, 4 segmented scans)
-    b_ms, b_by = bound(nbytes(*args, ref), 8 * ref.numel() * sweeps[-1])
+    b_ms, b_by = bound(nbytes(*args, ref), 0)
+    return {
+        "shape": f"{R}x{H}", "blocks": kb.library().lego_label_prop_grid(R, H),
+        "links": links, "ms": cuda_ms(torch, kernel, 50),
+        "call_ms": call_ms(torch, kernel, 50),
+        "plain_ms": cuda_ms(torch, lambda: seg_ops.propagate_labels_plain(*args, ms), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def check_k1(torch, cfg, imgs, dev):
+    """K1 on every VLP-16 image and on one scan of each other preset must
+    equal its plain version; the kernels line takes the first VLP-16 image."""
+    cases = [k1_case(torch, cfg, img) for img in imgs]
+    for name in K1_PRESETS:
+        pcfg, img = preset_image(torch, name, dev)
+        cases.append(dict(k1_case(torch, pcfg, img), preset=name))
+    for c in cases:
+        print(f"  K1 label_prop {c.get('preset', 'vlp16')} {c['shape']}: "
+              f"{c['blocks']} blocks, {c['links']} links across tiles, "
+              f"kernel {c['ms']:.4f} ms (call {c['call_ms']:.4f} ms), plain "
+              f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms "
+              f"({c['bound_by']}), {100 * c['bound_ms'] / c['ms']:.2f} % of it")
+    c = cases[0]
     return {
         "name": "label_prop", "route": "cuda",
         "source": "lego_loam_tpu_torch/csrc/label_prop.cu",
         "replaces": "lego_loam_tpu/ops/segmentation_pallas.py:120",
-        "max_abs_err": 0.0,
-        "ms": cuda_ms(torch, kernel, 50),
-        "call_ms": call_ms(torch, kernel, 50),
-        "plain_ms": cuda_ms(torch, lambda: seg_ops.propagate_labels_plain(*args, ms), 5),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-    }, f"equal on {len(imgs)} scans, sweeps {sweeps[::-1]}"
+        "max_abs_err": 0.0, "library_ms": None, "presets": cases[len(imgs):],
+        **{k: c[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
+    }, (f"equal on {len(imgs)} VLP-16 scans and one scan each of "
+        f"{', '.join(K1_PRESETS)}")
 
 
 def check_k2(torch, cfg, imgs):
@@ -300,17 +372,24 @@ def check_k3(torch, cfg, world, dev):
         f"plain {c['plain_ms']:.4f} ms")
 
 
-def run_slice(torch, cfg, scans, poses, dev):
-    """The main path through process_scan; returns its numbers."""
+def run_slice(torch, cfg, scans, poses, dev, n_warm=WARM_SCANS,
+              n_sync=SYNC_SCANS):
+    """The main path through process_scan: `n_warm` scans through a
+    throwaway pipeline, then every scan through a new one, timed over all
+    but the first `n_warm` and the last `n_sync` (which count host syncs),
+    and again with each stage synchronised; returns its numbers."""
     from lego_loam_tpu_torch.models import pipeline as pl
     from lego_loam_tpu_torch.ops import features, knn, segmentation
 
     wrappers = (segmentation.propagate_labels, features.pick_features, knn.knn)
-    dscans = [tuple(torch.as_tensor(a, device=dev) for a in s) for s in scans]
+    # an elevation-math preset takes no ring channel
+    dscans = [(torch.as_tensor(xyz, device=dev), torch.as_tensor(valid, device=dev),
+               torch.as_tensor(ring, device=dev) if cfg.sensor.use_ring else None)
+              for xyz, valid, ring in scans]
     # a throwaway pipeline first: library handles, allocator pools and the
     # kernel library load are set-up, not part of the measured run
     warm = pl.LegoLoamPipeline(cfg, dev)
-    for xyz, valid, ring in dscans[:WARM_SCANS]:
+    for xyz, valid, ring in dscans[:n_warm]:
         warm.process_scan(xyz, valid, ring)
     del warm
     torch.cuda.synchronize()
@@ -322,16 +401,16 @@ def run_slice(torch, cfg, scans, poses, dev):
     t_win = None
     syncs = []
     sync_sites = Counter()
-    n_win = N_SCANS - WARM_SCANS - SYNC_SCANS
+    n_win = len(dscans) - n_warm - n_sync
     for k, (xyz, valid, ring) in enumerate(dscans):
-        if k == WARM_SCANS:
+        if k == n_warm:
             torch.cuda.synchronize()
             t_win = time.perf_counter()
-        if k == WARM_SCANS + n_win:
+        if k == n_warm + n_win:
             # process_scan ends in a host copy of the pose, so the window is
             # complete once the last scan of it returned
             t_win = time.perf_counter() - t_win
-        if k >= WARM_SCANS + n_win:
+        if k >= n_warm + n_win:
             torch.cuda.set_sync_debug_mode("warn")
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
@@ -371,7 +450,7 @@ def run_slice(torch, cfg, scans, poses, dev):
         pipe2 = pl.LegoLoamPipeline(cfg, dev)
         n_map0 = 0
         for k, (xyz, valid, ring) in enumerate(dscans):
-            if k == WARM_SCANS:
+            if k == n_warm:
                 del fe_ms[:]
                 n_map0 = len(map_ms)
             pipe2.process_scan(xyz, valid, ring)
@@ -424,7 +503,7 @@ def main() -> None:
                          cfg, torch.as_tensor(scans[k][2], device=dev))
             for k in (0, 10, 20)]
     results = []
-    for r, note in (check_k1(torch, cfg, imgs), check_k2(torch, cfg, imgs),
+    for r, note in (check_k1(torch, cfg, imgs, dev), check_k2(torch, cfg, imgs),
                     check_k3(torch, cfg, world, dev)):
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms (call {r['call_ms']:.4f} "
               f"ms), plain {r['plain_ms']:.4f} ms, max|err| "
@@ -450,7 +529,27 @@ def main() -> None:
     if not np.isfinite(sl["ate_m"]) or sl["ate_m"] >= ATE_BOUND:
         fail(f"slice ATE {sl['ate_m']:.4f} m is not under {ATE_BOUND} m")
 
-    print(json.dumps({"slice": sl, "card": card}))
+    hcfg = config_for("hdl64e", deskew=False)
+    hposes = syn.circle_trajectory(HDL_SCANS, radius=8.0, arc=0.18 * np.pi)
+    hscans = [(mid_row(xyz, hcfg.sensor), valid, ring) for xyz, valid, ring in
+              make_scans(hcfg, syn.default_world(seed=9), hposes, noise=0.02)]
+    hl = run_slice(torch, hcfg, hscans, hposes, dev, HDL_WARM, HDL_SYNC)
+    print(f"hdl64e: {HDL_SCANS} scans ({hcfg.sensor.n_scan} x "
+          f"{hcfg.sensor.horizon_scan}, no ring channel), ATE {hl['ate_m']:.4f} "
+          f"m (max {hl['max_err_m']:.4f} m), {hl['n_kf']} keyframes")
+    print(f"hdl64e: {hl['scans_per_s']:.2f} scans/s over {hl['window_scans']} "
+          f"scans; frontend_step {hl['frontend_ms']:.2f} ms, mapping_step "
+          f"{hl['mapping_ms']:.2f} ms; peak memory "
+          f"{hl['peak_mem_bytes'] / 2**20:.1f} MiB; host syncs per scan "
+          f"{hl['host_syncs_per_scan']}; kernel launches {hl['launches']}")
+    for key, count in hl["launches"].items():
+        if count == 0:
+            fail(f"kernel {key} was not launched on the HDL-64E path")
+    if not np.isfinite(hl["ate_m"]) or hl["ate_m"] >= HDL_ATE_BOUND:
+        fail(f"HDL-64E ATE {hl['ate_m']:.4f} m is not under {HDL_ATE_BOUND} m")
+
+    print(json.dumps({"slice": sl, "hdl64e": hl, "k1_presets": results[0]["presets"],
+                      "card": card}))
     print(json.dumps({"kernels": [
         {key: r[key] for key in ("name", "route", "source", "replaces",
                                  "launches", "max_abs_err", "ms", "plain_ms",

@@ -33,9 +33,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # labels0, conn_left, conn_right, conn_up, conn_down, out, sweeps,
-    # R, H, max_sweeps, stream
-    "lego_label_prop": [_P] * 7 + [_I] * 3 + [_P],
+    # labels0, conn_left, conn_right, conn_up, conn_down, out, links, R, H,
+    # stream
+    "lego_label_prop": [_P] * 7 + [_I] * 2 + [_P],
+    "lego_label_prop_grid": [_I, _I],       # R, H -> blocks of one launch
+    "lego_label_prop_max_blocks": [],       # -> blocks the device holds at once
     # curv, corner_base, surf_base, picked0, reach_l, reach_r, sp, ep, ok,
     # labels, picked, R, W, S, n_corner, n_sharp, n_surf, stream
     "lego_pick_features": [_P] * 11 + [_I] * 6 + [_P],
@@ -95,8 +97,6 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.lego_label_prop_smem_bytes.argtypes = [_I, _I]
-        lib.lego_label_prop_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 

@@ -5,9 +5,9 @@
      angle = atan2(d2*sin(a), d1 - d2*cos(a)) > segment_theta;
   2. every segmentable pixel starts at its linear index;
   3. label propagation to the min-index fixpoint -- kernel K1
-     (``csrc/label_prop.cu``) on a CUDA tensor, the XLA loop's sweeps
-     (4-neighbour min + segmented min-scans along rows and columns) on a
-     CPU tensor;
+     (``csrc/label_prop.cu``, tiled union-find) on a CUDA tensor, the XLA
+     loop's sweeps (4-neighbour min + segmented min-scans along rows and
+     columns) on a CPU tensor;
   4. per-component size and ring span by scatter reductions, and the
      reference's validity rules (imageProjection.cpp:440-451).
 """
@@ -127,9 +127,12 @@ def propagate_labels(labels0, conn_left, edge_h, conn_up, conn_down,
 
     labels0 (R, H) int32 (p for a segmentable pixel, >= R*H otherwise);
     conn_left / edge_h (= conn_right) / conn_up / conn_down (R, H) bool.
-    CUDA tensors launch ``csrc/label_prop.cu``; CPU tensors run
-    :func:`propagate_labels_plain`.  The kernel's sweep count is kept in
-    ``propagate_labels.last_sweeps`` (a device tensor)."""
+    CUDA tensors launch ``csrc/label_prop.cu`` (one cooperative launch of
+    8 x 64-pixel tiles, which always reaches the fixpoint: ``max_sweeps``
+    binds only the plain version, see the note in the source); CPU tensors
+    run :func:`propagate_labels_plain`.  The kernel's count of links across
+    tile borders is kept in ``propagate_labels.last_links`` (a device
+    tensor)."""
     if not labels0.is_cuda:
         return propagate_labels_plain(labels0, conn_left, edge_h, conn_up,
                                       conn_down, max_sweeps)
@@ -140,27 +143,37 @@ def propagate_labels(labels0, conn_left, edge_h, conn_up, conn_down,
                     ("conn_up", conn_up), ("conn_down", conn_down)):
         kb.require(m, name, torch.bool, (R, H), dev)
     lib = kb.library()
-    need = lib.lego_label_prop_smem_bytes(R, H)
-    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if need > optin:
+    blocks = lib.lego_label_prop_grid(R, H)
+    fits = _coresident_blocks(lib, dev)
+    if blocks > fits:
         raise ValueError(
-            f"label_prop: a {R}x{H} grid needs {need} B of shared memory, a "
-            f"block may hold {optin} B (larger sensors need a multi-block "
-            "kernel)")
+            f"label_prop: a {R}x{H} grid needs {blocks} co-resident blocks, "
+            f"{torch.cuda.get_device_name(dev)} holds {fits}")
     out = torch.empty((R, H), dtype=torch.int32, device=dev)
-    sweeps = torch.empty((), dtype=torch.int32, device=dev)
+    links = torch.empty((), dtype=torch.int32, device=dev)
     kb.check(lib.lego_label_prop(
         labels0.data_ptr(), conn_left.data_ptr(), edge_h.data_ptr(),
         conn_up.data_ptr(), conn_down.data_ptr(), out.data_ptr(),
-        sweeps.data_ptr(), R, H, max_sweeps, kb.stream_of(labels0)),
-        "label_prop")
+        links.data_ptr(), R, H, kb.stream_of(labels0)), "label_prop")
     propagate_labels.launches += 1
-    propagate_labels.last_sweeps = sweeps
+    propagate_labels.last_links = links
     return out
 
 
 propagate_labels.launches = 0
-propagate_labels.last_sweeps = None
+propagate_labels.last_links = None
+_coresident: dict[int, int] = {}
+
+
+def _coresident_blocks(lib, dev: torch.device) -> int:
+    """Blocks of K1 that `dev` holds at once: the largest cooperative grid."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _coresident:
+        with torch.cuda.device(idx):
+            n = lib.lego_label_prop_max_blocks()
+        kb.check(-n if n < 0 else 0, "label_prop occupancy query")
+        _coresident[idx] = n
+    return _coresident[idx]
 
 
 def label_inputs(seg, edge_h, edge_v):

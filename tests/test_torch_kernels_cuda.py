@@ -5,7 +5,13 @@ fixture).  Run on a machine with an H100:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
-K1 (label propagation) and K2 (feature picks) must match exactly; K3 (k-NN)
+K1 (label propagation) and K2 (feature picks) must match exactly; K1 at
+every sensor preset's grid (one synthetic scan each) and on the built masks
+of tests/test_torch_label_prop.py (a serpentine through every tile border,
+a join across the column seam, full and empty grids, masks near the site
+and bond percolation thresholds, one column through all rows), on the
+VLS-128 grid and on ragged ones, where it must also count the links across
+tile borders that the masks need; K3 (k-NN)
 to rtol 1e-4 / atol 1e-3 on distances with every returned index a valid
 point at its distance (tests/test_knn_pallas.py's scheme), on shapes that
 exercise its split / merge passes: ragged and single splits, partial query
@@ -24,6 +30,9 @@ from lego_loam_tpu_torch.ops import features, knn, segmentation
 from lego_loam_tpu_torch.ops.compaction import segment_scan
 from lego_loam_tpu_torch.ops.ground import mark_ground
 from lego_loam_tpu_torch.ops.projection import project_scan
+
+from tests.test_torch_label_prop import (CASES, SHAPES, label_args,
+                                         label_case, reference_labels)
 
 pytestmark = pytest.mark.cuda
 CFG = config_for("vlp16")
@@ -45,15 +54,64 @@ def img(dev):
                         CFG, torch.as_tensor(ring, device=dev))
 
 
+def _links(seg, edge_h, edge_v):
+    """Links K1 must make across tile borders (8 x 64-pixel tiles, the
+    column seam included): tile-local pieces less components."""
+    R, H = seg.shape
+    tile = (np.arange(R)[:, None] // 8) * H + np.arange(H)[None] // 64
+    inner_h = edge_h & (tile == np.roll(tile, -1, 1))
+    inner_h[:, -1] = False
+    inner_v = edge_v.copy()
+    inner_v[:-1] &= tile[:-1] == tile[1:]
+    pieces = np.unique(reference_labels(seg, inner_h, inner_v)[seg]).size
+    return pieces - np.unique(reference_labels(seg, edge_h, edge_v)[seg]).size
+
+
+def _k1_matches_plain(args, max_sweeps):
+    n = segmentation.propagate_labels.launches
+    got = segmentation.propagate_labels(*args, max_sweeps)
+    assert segmentation.propagate_labels.launches == n + 1
+    ref = segmentation.propagate_labels_plain(*args, max_sweeps)
+    assert torch.equal(got, ref)
+    return got
+
+
 def test_label_prop_kernel_matches_plain(img):
     ground = mark_ground(img, CFG)
-    args = segmentation.label_inputs(*segmentation.build_edges(img, ground, CFG))
-    n = segmentation.propagate_labels.launches
-    got = segmentation.propagate_labels(*args, CFG.label_prop_max_sweeps)
-    assert segmentation.propagate_labels.launches == n + 1
-    ref = segmentation.propagate_labels_plain(*args, CFG.label_prop_max_sweeps)
-    assert torch.equal(got, ref)
-    assert 0 < int(segmentation.propagate_labels.last_sweeps) < CFG.label_prop_max_sweeps
+    seg, edge_h, edge_v = segmentation.build_edges(img, ground, CFG)
+    _k1_matches_plain(segmentation.label_inputs(seg, edge_h, edge_v),
+                      CFG.label_prop_max_sweeps)
+    assert int(segmentation.propagate_labels.last_links) == _links(
+        *(t.cpu().numpy() for t in (seg, edge_h, edge_v)))
+
+
+@pytest.mark.parametrize("preset", ["vlp16", "os1_16", "hdl32e", "os1_64",
+                                    "hdl64e", "vls128"])
+def test_label_prop_kernel_matches_plain_at_preset(dev, preset):
+    cfg = config_for(preset)
+    xyz, valid, ring = syn.raycast(syn.default_world(5), np.eye(3),
+                                   np.array([2.0, 1.0, 1.7]), cfg.sensor,
+                                   noise=0.01, rng=np.random.default_rng(3))
+    im = project_scan(*(torch.as_tensor(a, device=dev) for a in (xyz, valid)),
+                      cfg, torch.as_tensor(ring, device=dev)
+                      if cfg.sensor.use_ring else None)
+    edges = segmentation.build_edges(im, mark_ground(im, cfg), cfg)
+    labels = _k1_matches_plain(segmentation.label_inputs(*edges),
+                               cfg.label_prop_max_sweeps)
+    assert labels.shape == (cfg.sensor.n_scan, cfg.sensor.horizon_scan)
+    assert int(edges[0].sum()) > 1000
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("name,seed", [(c, 0) for c in CASES]
+                         + [("site", 1), ("bond", 1), ("site", 2)])
+def test_label_prop_kernel_on_built_masks(dev, name, seed, shape):
+    R, H = shape
+    masks = label_case(name, R, H, seed)
+    # a budget of R*H sweeps lets the plain loop reach the fixpoint
+    got = _k1_matches_plain(label_args(*masks, device=dev), R * H)
+    np.testing.assert_array_equal(got.cpu().numpy(), reference_labels(*masks))
+    assert int(segmentation.propagate_labels.last_links) == _links(*masks)
 
 
 def test_pick_kernel_matches_plain(img):
@@ -133,7 +191,17 @@ def test_wrappers_reject_bad_inputs(dev):
         knn.knn(q.double(), r.double(), torch.ones(16, dtype=torch.bool, device=dev), 5)
     with pytest.raises(ValueError):
         knn.knn(q, r, torch.ones(16, dtype=torch.bool, device=dev), 9)
-    big = torch.zeros((128, 1800), dtype=torch.int32, device=dev)
-    m = torch.zeros((128, 1800), dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError):       # VLS-128 does not fit one block
-        segmentation.propagate_labels(big, m, m, m, m)
+    lab = torch.zeros((16, 1800), dtype=torch.int32, device=dev)
+    m = torch.zeros((16, 1800), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        segmentation.propagate_labels(lab.long(), m, m, m, m)
+    with pytest.raises(ValueError):
+        segmentation.propagate_labels(lab, m, m.t().contiguous().t(), m, m)
+    # 512 x 64 tiles of 8 x 64 pixels: more blocks than the card holds at
+    # once, which a cooperative launch cannot take
+    big = torch.zeros((4096, 4096), dtype=torch.int32, device=dev)
+    bm = torch.zeros((4096, 4096), dtype=torch.bool, device=dev)
+    n = segmentation.propagate_labels.launches
+    with pytest.raises(ValueError, match="co-resident"):
+        segmentation.propagate_labels(big, bm, bm, bm, bm)
+    assert segmentation.propagate_labels.launches == n
