@@ -35,21 +35,24 @@ Phases (any failure exits non-zero before the result lines):
   5. the HDL-64E path (KITTI's sensor): config_for("hdl64e", deskew=False)
      at its default, ring-scaled capacities, 9 scans (3 mapping solves) of
      tests/test_hdl64e.py's course with 2 cm range noise, each point moved
-     half a row up into the middle of its elevation row (see mid_row), fed
-     without a ring channel (rows from elevation math); asserts that all
-     three kernels, K1 among them, were launched on it and that the ATE is
-     under tests/test_hdl64e.py's 0.2 m; prints the same numbers as the
-     slice.
+     half a row up into the middle of its elevation row (mid_row, from
+     tests/test_torch_sensor_rows.py), fed without a ring channel (rows
+     from elevation math); asserts that all three kernels, K1 among them,
+     were launched on it and that the ATE is under tests/test_hdl64e.py's
+     0.2 m; prints the same numbers as the slice.
 
 K1 is also held against its plain version, and timed beside its bound, on
 one synthetic scan of each other sensor preset (OS1-16, HDL-32E, OS1-64,
-HDL-64E, VLS-128), with its block count and links across tiles.
+HDL-64E, VLS-128), with its block count; K2 on the first scan of the
+HDL-64E path (64 x 1800, that path's config), timed there as well.  K3's
+shapes do not depend on the sensor: the map and scan capacities are not
+ring-scaled.
 
 deskew=False is the setting for motion-free scans: the raycaster casts
 every scan from one pose.  Every other knob is the default PipelineConfig.
 
-Prints the slice's and the HDL-64E path's numbers and K1's at each preset
-as one JSON line, then the kernel results as {"kernels": [...]} (K1 at
+Prints the slice's and the HDL-64E path's numbers, K1's at each preset and
+K2's at HDL-64E as one JSON line, then the kernel results as {"kernels": [...]} (K1 at
 VLP-16's shape), and as the last line {"ok": true, "device": {...}}.
 """
 
@@ -146,25 +149,12 @@ def make_scans(cfg, world, poses, noise=0.01):
             for k, (R, t) in enumerate(poses)]
 
 
-def mid_row(xyz, sensor):
-    """Each point moved half an elevation row up, range and azimuth kept.
-    The raycaster casts each ring at the very elevation where two rows of
-    the elevation math meet, so without this the row of every point of an
-    elevation-math preset would hang on the last bit of atan2."""
-    p = xyz.astype(np.float64)
-    rho = np.hypot(p[:, 0], p[:, 1])
-    rng = np.hypot(rho, p[:, 2])
-    el = np.arctan2(p[:, 2], rho) + np.radians(0.5 * sensor.ang_res_y)
-    az = np.arctan2(p[:, 1], p[:, 0])
-    return np.stack([rng * np.cos(el) * np.cos(az), rng * np.cos(el) * np.sin(az),
-                     rng * np.sin(el)], axis=1).astype(np.float32)
-
-
 def preset_image(torch, name, dev):
     """One synthetic scan of a sensor preset, projected on the card."""
     from lego_loam_tpu_torch import config_for
     from lego_loam_tpu_torch.io import synthetic as syn
     from lego_loam_tpu_torch.ops.projection import project_scan
+    from tests.test_torch_sensor_rows import mid_row
 
     cfg = config_for(name)
     xyz, valid, ring = syn.raycast(syn.default_world(seed=0), np.eye(3),
@@ -188,7 +178,6 @@ def k1_case(torch, cfg, img):
     ms = cfg.label_prop_max_sweeps
     args = seg_ops.label_inputs(*seg_ops.build_edges(img, mark_ground(img, cfg), cfg))
     got = seg_ops.propagate_labels(*args, ms)
-    links = int(seg_ops.propagate_labels.last_links)
     ref = seg_ops.propagate_labels_plain(*args, ms)
     torch.cuda.synchronize()
     R, H = ref.shape
@@ -199,7 +188,7 @@ def k1_case(torch, cfg, img):
     b_ms, b_by = bound(nbytes(*args, ref), 0)
     return {
         "shape": f"{R}x{H}", "blocks": kb.library().lego_label_prop_grid(R, H),
-        "links": links, "ms": cuda_ms(torch, kernel, 50),
+        "ms": cuda_ms(torch, kernel, 50),
         "call_ms": call_ms(torch, kernel, 50),
         "plain_ms": cuda_ms(torch, lambda: seg_ops.propagate_labels_plain(*args, ms), 5),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -215,8 +204,7 @@ def check_k1(torch, cfg, imgs, dev):
         cases.append(dict(k1_case(torch, pcfg, img), preset=name))
     for c in cases:
         print(f"  K1 label_prop {c.get('preset', 'vlp16')} {c['shape']}: "
-              f"{c['blocks']} blocks, {c['links']} links across tiles, "
-              f"kernel {c['ms']:.4f} ms (call {c['call_ms']:.4f} ms), plain "
+              f"{c['blocks']} blocks, kernel {c['ms']:.4f} ms (call {c['call_ms']:.4f} ms), plain "
               f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms "
               f"({c['bound_by']}), {100 * c['bound_ms'] / c['ms']:.2f} % of it")
     c = cases[0]
@@ -230,27 +218,34 @@ def check_k1(torch, cfg, imgs, dev):
         f"{', '.join(K1_PRESETS)}")
 
 
-def check_k2(torch, cfg, imgs):
-    """K2 on every image must equal its plain version; timed on the first."""
+def k2_case(torch, cfg, img):
+    """K2 on one image: must equal its plain version; returns its arguments,
+    its outputs and its (sharp, flat) pick counts."""
     from lego_loam_tpu_torch.ops import features as fops
     from lego_loam_tpu_torch.ops.compaction import segment_scan
 
-    counts = []
-    for img in reversed(imgs):          # ends with imgs[0]'s args, timed below
-        packed, _, _, _ = segment_scan(img, cfg)
-        args = fops.pick_inputs(packed, cfg) + (
-            cfg.sections_total, cfg.edge_feature_num_less, cfg.edge_feature_num,
-            cfg.surf_feature_num)
-        lab, pick = fops.pick_features(*args)
-        lab_p, pick_p = fops.pick_features_plain(*args)
-        torch.cuda.synchronize()
-        if not (torch.equal(lab, lab_p) and torch.equal(pick, pick_p)):
-            fail(f"K2 pick_features differs from its plain version: "
-                 f"{int((lab != lab_p).sum())} labels, "
-                 f"{int((pick != pick_p).sum())} picked cells")
-        counts.append((int((lab == 2).sum()), int((lab == -1).sum())))
-        if 0 in counts[-1]:
-            fail("K2 check scan produced no features")
+    packed, _, _, _ = segment_scan(img, cfg)
+    args = fops.pick_inputs(packed, cfg) + (
+        cfg.sections_total, cfg.edge_feature_num_less, cfg.edge_feature_num,
+        cfg.surf_feature_num)
+    lab, pick = fops.pick_features(*args)
+    lab_p, pick_p = fops.pick_features_plain(*args)
+    torch.cuda.synchronize()
+    R, W = lab.shape
+    if not (torch.equal(lab, lab_p) and torch.equal(pick, pick_p)):
+        fail(f"K2 pick_features differs from its plain version at {R}x{W}: "
+             f"{int((lab != lab_p).sum())} labels, "
+             f"{int((pick != pick_p).sum())} picked cells")
+    counts = (int((lab == 2).sum()), int((lab == -1).sum()))
+    if 0 in counts:
+        fail(f"K2 check scan at {R}x{W} produced no features")
+    return args, lab, pick, counts
+
+
+def k2_timing(torch, args, lab, pick):
+    """K2's device and call time, its plain version's, and its bound."""
+    from lego_loam_tpu_torch.ops import features as fops
+
     kernel = lambda: fops.pick_features(*args)  # noqa: E731
     # each input read once, labels and picks written once; a compare and a
     # select a cell for each of the n_corner + n_surf pick steps
@@ -258,15 +253,32 @@ def check_k2(torch, cfg, imgs):
     b_ms, b_by = bound(nbytes(*tensors, lab, pick),
                        2 * lab.numel() * (args[-3] + args[-1]))
     return {
+        "ms": cuda_ms(torch, kernel, 50), "call_ms": call_ms(torch, kernel, 50),
+        "plain_ms": cuda_ms(torch, lambda: fops.pick_features_plain(*args), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def check_k2(torch, cfg, imgs, hcfg, himg):
+    """K2 must equal its plain version on every VLP-16 image and on the
+    HDL-64E path's first image (with that path's config); timed on the
+    first VLP-16 image, for the kernels line, and on the HDL-64E one."""
+    cases = [k2_case(torch, cfg, img) for img in imgs]
+    hcase = k2_case(torch, hcfg, himg)
+    h = k2_timing(torch, *hcase[:3])
+    print(f"  K2 pick_features hdl64e {'x'.join(map(str, hcase[1].shape))}: "
+          f"equal, (sharp, flat) picks {hcase[3]}, kernel {h['ms']:.4f} ms "
+          f"(call {h['call_ms']:.4f} ms), plain {h['plain_ms']:.4f} ms, bound "
+          f"{h['bound_ms']:.5f} ms ({h['bound_by']}), "
+          f"{100 * h['bound_ms'] / h['ms']:.2f} % of it")
+    return {
         "name": "pick_features", "route": "cuda",
         "source": "lego_loam_tpu_torch/csrc/pick_features.cu",
         "replaces": "lego_loam_tpu/ops/features_pallas.py:87",
-        "max_abs_err": 0.0,
-        "ms": cuda_ms(torch, kernel, 50),
-        "call_ms": call_ms(torch, kernel, 50),
-        "plain_ms": cuda_ms(torch, lambda: fops.pick_features_plain(*args), 5),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-    }, f"equal on {len(imgs)} scans, (sharp, flat) picks {counts[::-1]}"
+        "max_abs_err": 0.0, "library_ms": None, "hdl64e": h,
+        **k2_timing(torch, *cases[0][:3]),
+    }, (f"equal on {len(imgs)} VLP-16 scans, (sharp, flat) picks "
+        f"{[c[3] for c in cases]}, and on the HDL-64E path's first scan")
 
 
 def knn_case(torch, query, ref, valid, k=5):
@@ -476,6 +488,7 @@ def main() -> None:
     from lego_loam_tpu_torch.io import synthetic as syn
     from lego_loam_tpu_torch.kernels import build as kb
     from lego_loam_tpu_torch.ops.projection import project_scan
+    from tests.test_torch_sensor_rows import mid_row
 
     dev = torch.device("cuda:0")
     card = card_line()
@@ -502,8 +515,16 @@ def main() -> None:
     imgs = [project_scan(*(torch.as_tensor(a, device=dev) for a in scans[k][:2]),
                          cfg, torch.as_tensor(scans[k][2], device=dev))
             for k in (0, 10, 20)]
+    # the HDL-64E path's scans: K2 is checked on the first one as well
+    hcfg = config_for("hdl64e", deskew=False)
+    hposes = syn.circle_trajectory(HDL_SCANS, radius=8.0, arc=0.18 * np.pi)
+    hscans = [(mid_row(xyz, hcfg.sensor), valid, ring) for xyz, valid, ring in
+              make_scans(hcfg, syn.default_world(seed=9), hposes, noise=0.02)]
+    himg = project_scan(*(torch.as_tensor(a, device=dev) for a in hscans[0][:2]),
+                        hcfg, None)
     results = []
-    for r, note in (check_k1(torch, cfg, imgs, dev), check_k2(torch, cfg, imgs),
+    for r, note in (check_k1(torch, cfg, imgs, dev),
+                    check_k2(torch, cfg, imgs, hcfg, himg),
                     check_k3(torch, cfg, world, dev)):
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms (call {r['call_ms']:.4f} "
               f"ms), plain {r['plain_ms']:.4f} ms, max|err| "
@@ -529,10 +550,6 @@ def main() -> None:
     if not np.isfinite(sl["ate_m"]) or sl["ate_m"] >= ATE_BOUND:
         fail(f"slice ATE {sl['ate_m']:.4f} m is not under {ATE_BOUND} m")
 
-    hcfg = config_for("hdl64e", deskew=False)
-    hposes = syn.circle_trajectory(HDL_SCANS, radius=8.0, arc=0.18 * np.pi)
-    hscans = [(mid_row(xyz, hcfg.sensor), valid, ring) for xyz, valid, ring in
-              make_scans(hcfg, syn.default_world(seed=9), hposes, noise=0.02)]
     hl = run_slice(torch, hcfg, hscans, hposes, dev, HDL_WARM, HDL_SYNC)
     print(f"hdl64e: {HDL_SCANS} scans ({hcfg.sensor.n_scan} x "
           f"{hcfg.sensor.horizon_scan}, no ring channel), ATE {hl['ate_m']:.4f} "
@@ -549,7 +566,7 @@ def main() -> None:
         fail(f"HDL-64E ATE {hl['ate_m']:.4f} m is not under {HDL_ATE_BOUND} m")
 
     print(json.dumps({"slice": sl, "hdl64e": hl, "k1_presets": results[0]["presets"],
-                      "card": card}))
+                      "k2_hdl64e": results[1]["hdl64e"], "card": card}))
     print(json.dumps({"kernels": [
         {key: r[key] for key in ("name", "route", "source", "replaces",
                                  "launches", "max_abs_err", "ms", "plain_ms",

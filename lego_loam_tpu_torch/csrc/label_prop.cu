@@ -52,10 +52,7 @@
 //  * Phase B, global memory: the edges that leave a tile (its last column,
 //    with the wrap from H-1 to 0, and its last row) join the two pieces'
 //    roots by the same rule.  A border pair that joins the same two pieces
-//    as the pair before it on the border is skipped (a warp shuffle).  Each
-//    link that joined two roots is counted (`links`): that count is the
-//    tile-local pieces less the components, whatever order the blocks ran
-//    in.
+//    as the pair before it on the border is skipped (a warp shuffle).
 //  * Phase C: each tile-local root follows its chain to the root; then
 //    every other pixel copies its local root's answer.
 // Why the result is exact: a parent only ever moves to a smaller index of
@@ -119,20 +116,19 @@ __device__ __forceinline__ int find_static(const int* par, int x) {
 
 // Join the sets of a and b: the larger root is linked under the smaller one
 // by atomicMin; if that root had been linked elsewhere meanwhile, atomicMin
-// returns its new parent and the join is retried from there.  Returns true
-// if this call linked one root under another.
-__device__ __forceinline__ bool unite(int* par, int a, int b) {
+// returns its new parent and the join is retried from there.
+__device__ __forceinline__ void unite(int* par, int a, int b) {
   while (true) {
     a = find(par, a);
     b = find(par, b);
-    if (a == b) return false;
+    if (a == b) return;
     if (a > b) {
       const int t = a;
       a = b;
       b = t;
     }
     const int old = atomicMin(par + b, a);
-    if (old == b) return true;
+    if (old == b) return;
     b = old;
   }
 }
@@ -143,7 +139,7 @@ label_prop_kernel(const int32_t* __restrict__ labels0,
                   const uint8_t* __restrict__ conn_right,
                   const uint8_t* __restrict__ conn_up,
                   const uint8_t* __restrict__ conn_down,
-                  int32_t* out, int32_t* links, int R, int H, int tiles_x) {
+                  int32_t* out, int R, int H, int tiles_x) {
   __shared__ int s_par[kTilePx];
   __shared__ uint32_t s_left[kTilePx / 32];   // bit: joined to the left pixel
   const int n = R * H;
@@ -195,7 +191,6 @@ label_prop_kernel(const int32_t* __restrict__ labels0,
     const int li = (lr0 + k * kRowStep) * kTileCols + lc;
     s_par[li] = lab0[k] < n ? li : kNone;
   }
-  if (blockIdx.x == 0 && tid == 0) *links = 0;
   __syncthreads();
   // runs: the parent of a pixel is the start of its run within the warp's
   // 32 pixels, or the last pixel of the previous 32 when the run goes on
@@ -259,9 +254,7 @@ label_prop_kernel(const int32_t* __restrict__ labels0,
     const int pq = __shfl_up_sync(0xffffffffu, qroot, 1);
     if (lane > 0 && tid != kTileRows && pb == broot && pq == qroot) bedge = false;
   }
-  const bool linked = bedge && unite(out, broot, qroot);
-  const int block_links = __syncthreads_count(linked);
-  if (tid == 0 && block_links > 0) atomicAdd(links, block_links);
+  if (bedge) unite(out, broot, qroot);
 
   grid.sync();
 
@@ -308,12 +301,12 @@ extern "C" int lego_label_prop_max_blocks() {
 
 extern "C" int lego_label_prop(const int32_t* labels0, const uint8_t* conn_left,
                                const uint8_t* conn_right, const uint8_t* conn_up,
-                               const uint8_t* conn_down, int32_t* out,
-                               int32_t* links, int R, int H, cudaStream_t stream) {
+                               const uint8_t* conn_down, int32_t* out, int R,
+                               int H, cudaStream_t stream) {
   int tiles_x = (H + kTileCols - 1) / kTileCols;
   void* args[] = {(void*)&labels0, (void*)&conn_left, (void*)&conn_right,
                   (void*)&conn_up, (void*)&conn_down, (void*)&out,
-                  (void*)&links, (void*)&R, (void*)&H, (void*)&tiles_x};
+                  (void*)&R, (void*)&H, (void*)&tiles_x};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       (const void*)label_prop_kernel, dim3(lego_label_prop_grid(R, H)),
       dim3(kThreads), args, 0, stream);

@@ -33,9 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # labels0, conn_left, conn_right, conn_up, conn_down, out, links, R, H,
-    # stream
-    "lego_label_prop": [_P] * 7 + [_I] * 2 + [_P],
+    # labels0, conn_left, conn_right, conn_up, conn_down, out, R, H, stream
+    "lego_label_prop": [_P] * 6 + [_I] * 2 + [_P],
     "lego_label_prop_grid": [_I, _I],       # R, H -> blocks of one launch
     "lego_label_prop_max_blocks": [],       # -> blocks the device holds at once
     # curv, corner_base, surf_base, picked0, reach_l, reach_r, sp, ep, ok,

@@ -130,9 +130,7 @@ def propagate_labels(labels0, conn_left, edge_h, conn_up, conn_down,
     CUDA tensors launch ``csrc/label_prop.cu`` (one cooperative launch of
     8 x 64-pixel tiles, which always reaches the fixpoint: ``max_sweeps``
     binds only the plain version, see the note in the source); CPU tensors
-    run :func:`propagate_labels_plain`.  The kernel's count of links across
-    tile borders is kept in ``propagate_labels.last_links`` (a device
-    tensor)."""
+    run :func:`propagate_labels_plain`."""
     if not labels0.is_cuda:
         return propagate_labels_plain(labels0, conn_left, edge_h, conn_up,
                                       conn_down, max_sweeps)
@@ -150,18 +148,15 @@ def propagate_labels(labels0, conn_left, edge_h, conn_up, conn_down,
             f"label_prop: a {R}x{H} grid needs {blocks} co-resident blocks, "
             f"{torch.cuda.get_device_name(dev)} holds {fits}")
     out = torch.empty((R, H), dtype=torch.int32, device=dev)
-    links = torch.empty((), dtype=torch.int32, device=dev)
     kb.check(lib.lego_label_prop(
         labels0.data_ptr(), conn_left.data_ptr(), edge_h.data_ptr(),
-        conn_up.data_ptr(), conn_down.data_ptr(), out.data_ptr(),
-        links.data_ptr(), R, H, kb.stream_of(labels0)), "label_prop")
+        conn_up.data_ptr(), conn_down.data_ptr(), out.data_ptr(), R, H,
+        kb.stream_of(labels0)), "label_prop")
     propagate_labels.launches += 1
-    propagate_labels.last_links = links
     return out
 
 
 propagate_labels.launches = 0
-propagate_labels.last_links = None
 _coresident: dict[int, int] = {}
 
 

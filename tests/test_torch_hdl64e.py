@@ -9,8 +9,8 @@ where two rows of the elevation math meet, so the row of every point
 hangs on the last bit of atan2 (the JAX package's own jitted and unjitted
 projections of these scans disagree on many pixels); every point is moved
 half a row up, range and azimuth kept, into the middle of its row, as a
-real sensor's beams are (chip_smoke.mid_row, which the HDL-64E path of
-chip_smoke.py uses too).  The front end (projection, segmentation labels,
+real sensor's beams are (tests/test_torch_sensor_rows.py::mid_row, which
+the HDL-64E path of chip_smoke.py uses too).  The front end (projection, segmentation labels,
 feature picks) must match exactly, as on VLP-16
 (tests/test_torch_frontend.py); process_scan's fused poses within 1 cm /
 0.1 deg and its stats equal, the bound tests/test_torch_pipeline.py
@@ -40,9 +40,9 @@ from lego_loam_tpu_torch.ops import features as tfeat
 from lego_loam_tpu_torch.ops.compaction import segment_scan as tsegment_scan
 from lego_loam_tpu_torch.ops.projection import project_scan as tproject
 
-from chip_smoke import mid_row
 from tests.test_hdl64e import CFG as JCFG
 from tests.test_torch_backend import _rot_err_deg
+from tests.test_torch_sensor_rows import mid_row
 
 TCFG = config_for("hdl64e", **{
     k: getattr(JCFG, k) for k in (
@@ -91,14 +91,6 @@ def test_config_and_scan_match_the_jax_side():
                      noise=0.02, rng=np.random.default_rng(1))
     for x, y in zip(a, b):
         assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
-    # the rows of elevation math: every cast point sits on a row boundary,
-    # and mid_row moves it to the middle of its row
-    xyz = a[0][a[1]]
-    for pts, frac in ((xyz, 0.0), (mid_row(xyz, TCFG.sensor), 0.5)):
-        p = pts.astype(np.float64)
-        el = np.degrees(np.arctan2(p[:, 2], np.hypot(p[:, 0], p[:, 1])))
-        rows = (el + TCFG.sensor.ang_bottom) / TCFG.sensor.ang_res_y
-        assert np.abs((rows - frac + 0.5) % 1.0 - 0.5).max() < 1e-4
 
 
 def _jax_frontend(xyz, valid):

@@ -10,8 +10,9 @@ every sensor preset's grid (one synthetic scan each) and on the built masks
 of tests/test_torch_label_prop.py (a serpentine through every tile border,
 a join across the column seam, full and empty grids, masks near the site
 and bond percolation thresholds, one column through all rows), on the
-VLS-128 grid and on ragged ones, where it must also count the links across
-tile borders that the masks need; K3 (k-NN)
+VLS-128 grid and on ragged ones, where it must also equal a scipy
+reference; K2 on a VLP-16 scan and on an HDL-64E one (64 x 1800, rows from
+elevation math); K3 (k-NN)
 to rtol 1e-4 / atol 1e-3 on distances with every returned index a valid
 point at its distance (tests/test_knn_pallas.py's scheme), on shapes that
 exercise its split / merge passes: ragged and single splits, partial query
@@ -33,6 +34,7 @@ from lego_loam_tpu_torch.ops.projection import project_scan
 
 from tests.test_torch_label_prop import (CASES, SHAPES, label_args,
                                          label_case, reference_labels)
+from tests.test_torch_sensor_rows import mid_row
 
 pytestmark = pytest.mark.cuda
 CFG = config_for("vlp16")
@@ -54,19 +56,6 @@ def img(dev):
                         CFG, torch.as_tensor(ring, device=dev))
 
 
-def _links(seg, edge_h, edge_v):
-    """Links K1 must make across tile borders (8 x 64-pixel tiles, the
-    column seam included): tile-local pieces less components."""
-    R, H = seg.shape
-    tile = (np.arange(R)[:, None] // 8) * H + np.arange(H)[None] // 64
-    inner_h = edge_h & (tile == np.roll(tile, -1, 1))
-    inner_h[:, -1] = False
-    inner_v = edge_v.copy()
-    inner_v[:-1] &= tile[:-1] == tile[1:]
-    pieces = np.unique(reference_labels(seg, inner_h, inner_v)[seg]).size
-    return pieces - np.unique(reference_labels(seg, edge_h, edge_v)[seg]).size
-
-
 def _k1_matches_plain(args, max_sweeps):
     n = segmentation.propagate_labels.launches
     got = segmentation.propagate_labels(*args, max_sweeps)
@@ -81,8 +70,6 @@ def test_label_prop_kernel_matches_plain(img):
     seg, edge_h, edge_v = segmentation.build_edges(img, ground, CFG)
     _k1_matches_plain(segmentation.label_inputs(seg, edge_h, edge_v),
                       CFG.label_prop_max_sweeps)
-    assert int(segmentation.propagate_labels.last_links) == _links(
-        *(t.cpu().numpy() for t in (seg, edge_h, edge_v)))
 
 
 @pytest.mark.parametrize("preset", ["vlp16", "os1_16", "hdl32e", "os1_64",
@@ -111,19 +98,30 @@ def test_label_prop_kernel_on_built_masks(dev, name, seed, shape):
     # a budget of R*H sweeps lets the plain loop reach the fixpoint
     got = _k1_matches_plain(label_args(*masks, device=dev), R * H)
     np.testing.assert_array_equal(got.cpu().numpy(), reference_labels(*masks))
-    assert int(segmentation.propagate_labels.last_links) == _links(*masks)
 
 
-def test_pick_kernel_matches_plain(img):
-    packed = segment_scan(img, CFG)[0]
-    args = features.pick_inputs(packed, CFG) + (
-        CFG.sections_total, CFG.edge_feature_num_less, CFG.edge_feature_num,
-        CFG.surf_feature_num)
+@pytest.mark.parametrize("preset", ["vlp16", "hdl64e"])
+def test_pick_kernel_matches_plain(dev, img, preset):
+    cfg = config_for(preset, deskew=False)
+    if cfg.sensor.use_ring:
+        im = img
+    else:
+        # the HDL-64E path of chip_smoke.py: rows from elevation math
+        xyz, valid, _ = syn.raycast(syn.default_world(9), np.eye(3),
+                                    np.array([1.0, 2.0, 1.7]), cfg.sensor,
+                                    noise=0.02, rng=np.random.default_rng(4))
+        im = project_scan(torch.as_tensor(mid_row(xyz, cfg.sensor), device=dev),
+                          torch.as_tensor(valid, device=dev), cfg, None)
+    packed = segment_scan(im, cfg)[0]
+    args = features.pick_inputs(packed, cfg) + (
+        cfg.sections_total, cfg.edge_feature_num_less, cfg.edge_feature_num,
+        cfg.surf_feature_num)
     n = features.pick_features.launches
     lab, pick = features.pick_features(*args)
     assert features.pick_features.launches == n + 1
     lab_p, pick_p = features.pick_features_plain(*args)
     assert torch.equal(lab, lab_p) and torch.equal(pick, pick_p)
+    assert lab.shape[0] == cfg.sensor.n_scan
     assert int((lab == 2).sum()) > 0 and int((lab == -1).sum()) > 0
 
 
