@@ -13,7 +13,8 @@ Phases (any failure exits non-zero before the result lines):
   3. kernels against their plain PyTorch versions on the card, on inputs
      from real synthetic VLP-16 scans at the shapes of the main path (and
      K1 at every sensor preset, below):
-     K1 label propagation and K2 feature picks must match exactly; K3 k-NN
+     K1 label propagation and K2, the whole feature-label step from the
+     packed scan, must match exactly; K3 k-NN
      at (1024 x 8192) and (4096 x 32768), k=5, must match the distances to
      rtol 1e-4 / atol 1e-3 and return true neighbours of those distances
      (the scheme of tests/test_knn_pallas.py).  Each kernel and its plain
@@ -22,7 +23,7 @@ Phases (any failure exits non-zero before the result lines):
      kernel's host-clock time per call, launch included, is printed beside,
      and so are its bound (the larger of its bytes over the card's memory
      rate and its operations over the FP32 rate, from this run's inputs; K1's
-     is its bytes alone) and the kernel's share of it.  K3 also prints its
+     is its bytes alone) and the kernel's share of it.  K3 prints its
      split count and grid, and, as information only, the time of
      torch.topk(torch.cdist(q, r)), a two-call composition that the port
      never calls;
@@ -39,12 +40,19 @@ Phases (any failure exits non-zero before the result lines):
      tests/test_torch_sensor_rows.py), fed without a ring channel (rows
      from elevation math); asserts that all three kernels, K1 among them,
      were launched on it and that the ATE is under tests/test_hdl64e.py's
-     0.2 m; prints the same numbers as the slice.
+     0.2 m; prints the same numbers as the slice;
+  6. torch.profiler, after every timed phase (a profiler session can leave
+     the launch path slower for the rest of the process): the device
+     kernels one K2 call runs (more than 2 fails), beside those of the
+     tensor-op prep it replaced; and 6 steady VLP-16 scans of a new
+     pipeline: device events a scan, device busy ms a scan and the
+     device's idle share.
 
 K1 is also held against its plain version, and timed beside its bound, on
 one synthetic scan of each other sensor preset (OS1-16, HDL-32E, OS1-64,
-HDL-64E, VLS-128), with its block count; K2 on the first scan of the
-HDL-64E path (64 x 1800, that path's config), timed there as well.  K3's
+HDL-64E, VLS-128), with its block count; K2 on one scan of each of the six
+presets and on the first scan of the HDL-64E path (64 x 1800, that path's
+config), timed there as well.  K3's
 shapes do not depend on the sensor: the map and scan capacities are not
 ring-scaled.
 
@@ -77,6 +85,7 @@ ATE_BOUND = 0.15        # m, the bound of tests/test_pipeline.py
 HDL_SCANS, HDL_WARM, HDL_SYNC = 9, 3, 1
 HDL_ATE_BOUND = 0.2     # m, the bound of tests/test_hdl64e.py
 K1_PRESETS = ("os1_16", "hdl32e", "os1_64", "hdl64e", "vls128")
+K2_PRESETS = ("vlp16",) + K1_PRESETS
 SLEEP_CYCLES = 40_000_000   # ~20 ms of device clock ahead of each timing
 # H100 SXM peaks at 700 W (NVIDIA's H100 datasheet): HBM3 and float32
 # outside the tensor cores; the kernels' 32-bit integer and compare work is
@@ -218,67 +227,125 @@ def check_k1(torch, cfg, imgs, dev):
         f"{', '.join(K1_PRESETS)}")
 
 
-def k2_case(torch, cfg, img):
-    """K2 on one image: must equal its plain version; returns its arguments,
-    its outputs and its (sharp, flat) pick counts."""
+def device_kernels(torch, fn) -> list:
+    """Names of the device activities (kernels, copies, fills) of one call
+    of `fn`, from torch.profiler, after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def k2_case(torch, cfg, img, need_features=True):
+    """K2 on the packed scan of one image: labels and picks must equal
+    label_features_plain's; returns the packed scan, the outputs and the
+    (sharp, flat) pick counts (which must not be 0 if `need_features`)."""
     from lego_loam_tpu_torch.ops import features as fops
     from lego_loam_tpu_torch.ops.compaction import segment_scan
 
-    packed, _, _, _ = segment_scan(img, cfg)
-    args = fops.pick_inputs(packed, cfg) + (
-        cfg.sections_total, cfg.edge_feature_num_less, cfg.edge_feature_num,
-        cfg.surf_feature_num)
-    lab, pick = fops.pick_features(*args)
-    lab_p, pick_p = fops.pick_features_plain(*args)
+    packed = segment_scan(img, cfg)[0]
+    lab, pick = fops.label_features(packed, cfg)
+    lab_p, pick_p = fops.label_features_plain(packed, cfg)
     torch.cuda.synchronize()
     R, W = lab.shape
     if not (torch.equal(lab, lab_p) and torch.equal(pick, pick_p)):
-        fail(f"K2 pick_features differs from its plain version at {R}x{W}: "
+        fail(f"K2 label_features differs from its plain version at {R}x{W}: "
              f"{int((lab != lab_p).sum())} labels, "
              f"{int((pick != pick_p).sum())} picked cells")
     counts = (int((lab == 2).sum()), int((lab == -1).sum()))
-    if 0 in counts:
+    if need_features and 0 in counts:
         fail(f"K2 check scan at {R}x{W} produced no features")
-    return args, lab, pick, counts
+    return packed, lab, pick, counts
 
 
-def k2_timing(torch, args, lab, pick):
-    """K2's device and call time, its plain version's, and its bound."""
+def k2_timing(torch, cfg, packed, lab, pick):
+    """K2's device and call time, its plain version's and its bound, and
+    the host time of the prep it replaced (pick_inputs, the old path's
+    tensor ops)."""
     from lego_loam_tpu_torch.ops import features as fops
 
-    kernel = lambda: fops.pick_features(*args)  # noqa: E731
-    # each input read once, labels and picks written once; a compare and a
-    # select a cell for each of the n_corner + n_surf pick steps
-    tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    b_ms, b_by = bound(nbytes(*tensors, lab, pick),
-                       2 * lab.numel() * (args[-3] + args[-1]))
+    kernel = lambda: fops.label_features(packed, cfg)  # noqa: E731
+    prep = lambda: fops.pick_inputs(packed, cfg)  # noqa: E731
+    R, W = lab.shape
+    counts = packed.count.clamp(0, W).sort().values.tolist()
+    kept = sum(counts)
+    steps = cfg.edge_feature_num_less + cfg.surf_feature_num
+    # bytes: rng, valid, col, ground of each kept cell (10 B), labels and
+    # picked of every cell (5 B), count (4 B a ring); operations: the
+    # curvature stencil (13 a kept cell), then a compare and a select a
+    # kept cell for each pick step
+    b_ms, b_by = bound(10 * kept + 5 * R * W + 4 * R, kept * (13 + 2 * steps))
     return {
         "ms": cuda_ms(torch, kernel, 50), "call_ms": call_ms(torch, kernel, 50),
-        "plain_ms": cuda_ms(torch, lambda: fops.pick_features_plain(*args), 5),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "plain_ms": cuda_ms(torch, lambda: fops.label_features_plain(packed, cfg), 5),
+        "bound_ms": b_ms, "bound_by": b_by, "kept_cells": kept,
+        "ring_counts": (counts[0], counts[len(counts) // 2], counts[-1]),
+        "prep_call_ms": call_ms(torch, prep, 20),
     }
 
 
-def check_k2(torch, cfg, imgs, hcfg, himg):
-    """K2 must equal its plain version on every VLP-16 image and on the
-    HDL-64E path's first image (with that path's config); timed on the
-    first VLP-16 image, for the kernels line, and on the HDL-64E one."""
+def k2_device_kernels(torch, k2):
+    """The device kernels one label_features call runs (torch.profiler; at
+    most 2, or fail), beside those of the prep it replaced, on the scans K2
+    was timed on.  Run after every timed phase: a profiler session can
+    leave the launch path slower for the rest of the process."""
+    from lego_loam_tpu_torch.ops import features as fops
+
+    for tag, cfg, packed in k2.pop("_cases"):
+        names = device_kernels(torch, lambda: fops.label_features(packed, cfg))
+        if not names:
+            fail("torch.profiler saw no device work in a label_features call")
+        if len(names) > 2:
+            fail(f"one label_features call ran {len(names)} device kernels: "
+                 f"{names}")
+        prep = len(device_kernels(torch, lambda: fops.pick_inputs(packed, cfg)))
+        row = k2 if tag == "vlp16" else k2["hdl64e"]
+        row.update(device_kernels=len(names), prep_device_kernels=prep)
+        print(f"  K2 label_features {tag}: one call runs {len(names)} device "
+              f"kernel(s) {sorted(set(names))} (torch.profiler), where the "
+              f"replaced prep (pick_inputs) ran {prep}")
+
+
+def check_k2(torch, cfg, imgs, hcfg, himg, dev):
+    """K2 must equal its plain version on every VLP-16 image, on the HDL-64E
+    path's first image (with that path's config) and on one scan of each
+    sensor preset; timed on the first VLP-16 image, for the kernels line,
+    and on the HDL-64E one."""
     cases = [k2_case(torch, cfg, img) for img in imgs]
     hcase = k2_case(torch, hcfg, himg)
-    h = k2_timing(torch, *hcase[:3])
-    print(f"  K2 pick_features hdl64e {'x'.join(map(str, hcase[1].shape))}: "
-          f"equal, (sharp, flat) picks {hcase[3]}, kernel {h['ms']:.4f} ms "
-          f"(call {h['call_ms']:.4f} ms), plain {h['plain_ms']:.4f} ms, bound "
-          f"{h['bound_ms']:.5f} ms ({h['bound_by']}), "
-          f"{100 * h['bound_ms'] / h['ms']:.2f} % of it")
+    presets = {}
+    for name in K2_PRESETS:
+        pcfg, img = preset_image(torch, name, dev)
+        presets[name] = k2_case(torch, pcfg, img, need_features=False)[3]
+    rows = [("vlp16", cfg, cases[0]), ("hdl64e", hcfg, hcase)]
+    out = {tag: k2_timing(torch, c, *case[:3]) for tag, c, case in rows}
+    for tag, c, case in rows:
+        h = out[tag]
+        print(f"  K2 label_features {tag} {'x'.join(map(str, case[1].shape))} "
+              f"({h['kept_cells']} kept cells, a ring's count min / median / "
+              f"max {h['ring_counts']}): equal, (sharp, flat) picks "
+              f"{case[3]}, kernel {h['ms']:.4f} ms (call {h['call_ms']:.4f} "
+              f"ms), plain {h['plain_ms']:.4f} ms, bound {h['bound_ms']:.5f} "
+              f"ms ({h['bound_by']}), {100 * h['bound_ms'] / h['ms']:.2f} % of "
+              f"it; the replaced prep (pick_inputs) took "
+              f"{h['prep_call_ms']:.4f} ms of host time a call")
+    print(f"  K2 label_features presets: equal, (sharp, flat) picks {presets}")
     return {
-        "name": "pick_features", "route": "cuda",
+        "name": "label_features", "route": "cuda",
         "source": "lego_loam_tpu_torch/csrc/pick_features.cu",
         "replaces": "lego_loam_tpu/ops/features_pallas.py:87",
-        "max_abs_err": 0.0, "library_ms": None, "hdl64e": h,
-        **k2_timing(torch, *cases[0][:3]),
+        "max_abs_err": 0.0, "library_ms": None, "hdl64e": out["hdl64e"],
+        "_cases": [(tag, c, case[0]) for tag, c, case in rows],
+        **{k: out["vlp16"][k] for k in ("ms", "call_ms", "plain_ms",
+                                        "bound_ms", "bound_by")},
     }, (f"equal on {len(imgs)} VLP-16 scans, (sharp, flat) picks "
-        f"{[c[3] for c in cases]}, and on the HDL-64E path's first scan")
+        f"{[c[3] for c in cases]}, on the HDL-64E path's first scan and on "
+        f"one scan each of {', '.join(K2_PRESETS)}")
 
 
 def knn_case(torch, query, ref, valid, k=5):
@@ -393,7 +460,7 @@ def run_slice(torch, cfg, scans, poses, dev, n_warm=WARM_SCANS,
     from lego_loam_tpu_torch.models import pipeline as pl
     from lego_loam_tpu_torch.ops import features, knn, segmentation
 
-    wrappers = (segmentation.propagate_labels, features.pick_features, knn.knn)
+    wrappers = (segmentation.propagate_labels, features.label_features, knn.knn)
     # an elevation-math preset takes no ring channel
     dscans = [(torch.as_tensor(xyz, device=dev), torch.as_tensor(valid, device=dev),
                torch.as_tensor(ring, device=dev) if cfg.sensor.use_ring else None)
@@ -479,6 +546,46 @@ def run_slice(torch, cfg, scans, poses, dev, n_warm=WARM_SCANS,
     }
 
 
+def profile_scans(torch, cfg, scans, dev, n_warm=3, n_prof=6):
+    """Device activity of `n_prof` steady scans under torch.profiler (after
+    `n_warm` through the same new pipeline): device events a scan, device
+    busy ms a scan (the union of their intervals), host ms a scan under the
+    profiler, and the device's idle share of that window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lego_loam_tpu_torch.models import pipeline as pl
+
+    pipe = pl.LegoLoamPipeline(cfg, dev)
+    dscans = [(torch.as_tensor(xyz, device=dev), torch.as_tensor(valid, device=dev),
+               torch.as_tensor(ring, device=dev) if cfg.sensor.use_ring else None)
+              for xyz, valid, ring in scans[:n_warm + n_prof]]
+    for xyz, valid, ring in dscans[:n_warm]:
+        pipe.process_scan(xyz, valid, ring)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for xyz, valid, ring in dscans[n_warm:]:
+            pipe.process_scan(xyz, valid, ring)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        fail("torch.profiler saw no device work over the profiled scans")
+    busy, lo, hi = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    return {"scans": n_prof, "device_events_per_scan": len(spans) / n_prof,
+            "device_busy_ms_per_scan": busy / n_prof / 1e3,
+            "host_ms_per_scan": wall_us / n_prof / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us}
+
+
 def main() -> None:
     import torch
 
@@ -524,7 +631,7 @@ def main() -> None:
                         hcfg, None)
     results = []
     for r, note in (check_k1(torch, cfg, imgs, dev),
-                    check_k2(torch, cfg, imgs, hcfg, himg),
+                    check_k2(torch, cfg, imgs, hcfg, himg, dev),
                     check_k3(torch, cfg, world, dev)):
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms (call {r['call_ms']:.4f} "
               f"ms), plain {r['plain_ms']:.4f} ms, max|err| "
@@ -543,7 +650,7 @@ def main() -> None:
     print(f"slice: host syncs per scan {sl['host_syncs_per_scan']}, by "
           f"call site over those scans: {sl['sync_sites']}")
     print(f"slice: kernel launches {sl['launches']}")
-    for r, key in zip(results, ("propagate_labels", "pick_features", "knn")):
+    for r, key in zip(results, ("propagate_labels", "label_features", "knn")):
         r["launches"] = sl["launches"][key]
         if r["launches"] == 0:
             fail(f"kernel {r['name']} was not launched on the main path")
@@ -564,6 +671,15 @@ def main() -> None:
             fail(f"kernel {key} was not launched on the HDL-64E path")
     if not np.isfinite(hl["ate_m"]) or hl["ate_m"] >= HDL_ATE_BOUND:
         fail(f"HDL-64E ATE {hl['ate_m']:.4f} m is not under {HDL_ATE_BOUND} m")
+
+    # profiler phases last: they must not slow the timed ones
+    k2_device_kernels(torch, results[1])
+    sl["profile"] = pr = profile_scans(torch, cfg, scans, dev)
+    print(f"slice: torch.profiler over {pr['scans']} steady scans: "
+          f"{pr['device_events_per_scan']:.0f} device events a scan, device "
+          f"busy {pr['device_busy_ms_per_scan']:.2f} ms of "
+          f"{pr['host_ms_per_scan']:.2f} ms a scan (host clock, under the "
+          f"profiler): device idle {100 * pr['device_idle_share']:.1f} %")
 
     print(json.dumps({"slice": sl, "hdl64e": hl, "k1_presets": results[0]["presets"],
                       "k2_hdl64e": results[1]["hdl64e"], "card": card}))

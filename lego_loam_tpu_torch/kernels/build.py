@@ -37,9 +37,8 @@ _SIGNATURES = {
     "lego_label_prop": [_P] * 6 + [_I] * 2 + [_P],
     "lego_label_prop_grid": [_I, _I],       # R, H -> blocks of one launch
     "lego_label_prop_max_blocks": [],       # -> blocks the device holds at once
-    # curv, corner_base, surf_base, picked0, reach_l, reach_r, sp, ep, ok,
-    # labels, picked, R, W, S, n_corner, n_sharp, n_surf, stream
-    "lego_pick_features": [_P] * 11 + [_I] * 6 + [_P],
+    # rng, valid, col, ground, count, labels, picked, R, W, &params, stream
+    "lego_label_features": [_P] * 7 + [_I] * 2 + [_P] * 2,
     # query, ref, ref_valid, Q, N, k, S, scratch, idx, d2, stream
     "lego_knn": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
 }

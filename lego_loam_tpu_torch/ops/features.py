@@ -4,11 +4,15 @@
 All rings run in parallel and, in the sector_parallel mode the port
 supports, all six sectors of a ring pick at once; the ranked picks within a
 sector stay sequential (every pick suppresses neighbours that later picks
-must see).  The pick loop is kernel K2 (``csrc/pick_features.cu``) on a
-CUDA tensor and the plain loop below on a CPU tensor.
+must see).  On a CUDA scan the whole label step (curvature, occlusion
+mask, reach, ring median, sector picks) is kernel K2
+(``csrc/pick_features.cu``), one launch; on a CPU scan it is the plain
+prep and pick loop below.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -129,50 +133,10 @@ def pick_features_plain(curv, corner_base, surf_base, picked0, reach_l,
     return labels, picked
 
 
-def pick_features(curv, corner_base, surf_base, picked0, reach_l, reach_r,
-                  sp_all, ep_all, ok_all, n_sectors: int, n_corner: int,
-                  n_sharp: int, n_surf: int):
-    """Both pick passes (K2).  curv (R, W) f32; corner_base / surf_base /
-    picked0 (R, W) bool; reach_l / reach_r (R, W) int32; sp_all / ep_all
-    (R, S) int32, ok_all (R, S) bool.  CUDA tensors launch
-    ``csrc/pick_features.cu``; CPU tensors run :func:`pick_features_plain`."""
-    if not curv.is_cuda:
-        return pick_features_plain(curv, corner_base, surf_base, picked0,
-                                   reach_l, reach_r, sp_all, ep_all, ok_all,
-                                   n_sectors, n_corner, n_sharp, n_surf)
-    R, W = curv.shape
-    S = n_sectors
-    dev = curv.device
-    if not 1 <= S <= 32:
-        raise ValueError(f"pick_features: 1..32 sectors, got {S}")
-    kb.require(curv, "curv", torch.float32, (R, W), dev)
-    for name, t in (("corner_base", corner_base), ("surf_base", surf_base),
-                    ("picked0", picked0)):
-        kb.require(t, name, torch.bool, (R, W), dev)
-    kb.require(reach_l, "reach_l", torch.int32, (R, W), dev)
-    kb.require(reach_r, "reach_r", torch.int32, (R, W), dev)
-    kb.require(sp_all, "sp_all", torch.int32, (R, S), dev)
-    kb.require(ep_all, "ep_all", torch.int32, (R, S), dev)
-    kb.require(ok_all, "ok_all", torch.bool, (R, S), dev)
-    labels = torch.empty((R, W), dtype=torch.int32, device=dev)
-    picked = torch.empty((R, W), dtype=torch.bool, device=dev)
-    kb.check(kb.library().lego_pick_features(
-        curv.data_ptr(), corner_base.data_ptr(), surf_base.data_ptr(),
-        picked0.data_ptr(), reach_l.data_ptr(), reach_r.data_ptr(),
-        sp_all.data_ptr(), ep_all.data_ptr(), ok_all.data_ptr(),
-        labels.data_ptr(), picked.data_ptr(), R, W, S, n_corner, n_sharp,
-        n_surf, kb.stream_of(curv)), "pick_features")
-    pick_features.launches += 1
-    return labels, picked
-
-
-pick_features.launches = 0
-
-
 def pick_inputs(packed: SegmentedScan, cfg: PipelineConfig):
     """The pick loop's inputs: (curv, corner_base, surf_base, picked0,
     reach_l, reach_r, sp_all, ep_all, ok_all) -- the arguments of
-    :func:`pick_features` before the static counts."""
+    :func:`pick_features_plain` before the static counts."""
     curv, curv_valid = compute_curvature(packed, cfg)
     picked0 = occlusion_mask(packed, cfg)
     reach_l, reach_r = _suppress_reach(packed.col, packed.count, cfg)
@@ -197,20 +161,95 @@ def pick_inputs(packed: SegmentedScan, cfg: PipelineConfig):
     j_all = torch.arange(cfg.sections_total, dtype=torch.int32,
                          device=curv.device)[None, :]
     sp_all, ep_all, ok_all = _sector_bounds(packed.count[:, None], j_all, cfg)
-    return (curv.contiguous(), corner_base, surf_base, picked0, reach_l,
-            reach_r, sp_all.contiguous(), ep_all.contiguous(),
-            ok_all.contiguous())
+    return (curv, corner_base, surf_base, picked0, reach_l, reach_r, sp_all,
+            ep_all, ok_all)
+
+
+def label_features_plain(packed: SegmentedScan, cfg: PipelineConfig):
+    """K2's plain version: the prep of :func:`pick_inputs`, then the pick
+    loop :func:`pick_features_plain`."""
+    return pick_features_plain(*pick_inputs(packed, cfg), cfg.sections_total,
+                               cfg.edge_feature_num_less, cfg.edge_feature_num,
+                               cfg.surf_feature_num)
+
+
+class _Params(ctypes.Structure):
+    """The cfg scalars of ``csrc/pick_features.cu``'s LegoFeatureParams."""
+
+    _fields_ = ([(f, ctypes.c_float) for f in (
+        "edge_threshold", "edge_prominence", "surf_threshold",
+        "occlusion_depth_gap", "parallel_beam_frac")]
+        + [(f, ctypes.c_int) for f in (
+            "occlusion_col_diff", "n_sectors", "n_corner", "n_sharp",
+            "n_surf", "use_median")])
+
+
+_PARAMS: dict = {}
+
+
+def _params(cfg: PipelineConfig) -> int:
+    """The address of the kernel's params struct for a config, built once
+    per config object (looked up by identity: hashing a config costs more
+    than the launch)."""
+    hit = _PARAMS.get(id(cfg))
+    if hit is None or hit[0] is not cfg:
+        p = _Params(cfg.edge_threshold, cfg.edge_prominence,
+                    cfg.surf_threshold, cfg.occlusion_depth_gap,
+                    cfg.parallel_beam_frac, cfg.occlusion_col_diff,
+                    cfg.sections_total, cfg.edge_feature_num_less,
+                    cfg.edge_feature_num, cfg.surf_feature_num,
+                    int(cfg.edge_prominence > 0.0))
+        hit = _PARAMS[id(cfg)] = (cfg, p, ctypes.addressof(p))
+    return hit[2]
+
+
+def _cells_per_lane(W: int) -> int:
+    """Cells a lane of K2's pick warps holds at ring width W: a sector spans
+    at most ceil((W - 10) / 6) cells, whatever its index."""
+    sector = -(-max(W - 10, 0) // 6)
+    return -(-sector // 32)
+
+
+MAX_CELLS_PER_LANE = 16     # the kernel's largest register run
+MAX_SECTORS = 8             # one warp a sector, eight warps a block
 
 
 def label_features(packed: SegmentedScan, cfg: PipelineConfig):
     """Returns the label grid (2 sharp, 1 less-sharp, -1 flat, 0 none) and
-    the final picked mask (sector_parallel pick order)."""
+    the final picked mask (sector_parallel pick order).  A CUDA scan
+    launches K2 (``csrc/pick_features.cu``, the whole step in one launch,
+    from rng / valid / col / ground / count); a CPU scan runs
+    :func:`label_features_plain`."""
     if not cfg.sector_parallel:
         raise NotImplementedError(
             "the port implements the sector_parallel pick order only")
-    return pick_features(*pick_inputs(packed, cfg), cfg.sections_total,
-                         cfg.edge_feature_num_less, cfg.edge_feature_num,
-                         cfg.surf_feature_num)
+    rng = packed.rng
+    if not rng.is_cuda:
+        return label_features_plain(packed, cfg)
+    R, W = rng.shape
+    dev = rng.device
+    S = cfg.sections_total
+    if not 1 <= S <= MAX_SECTORS or _cells_per_lane(W) > MAX_CELLS_PER_LANE:
+        raise ValueError(f"label_features: {S} sectors of a {W}-cell ring do "
+                         f"not fit K2 (1..{MAX_SECTORS} sectors, W <= "
+                         f"{6 * 32 * MAX_CELLS_PER_LANE + 10})")
+    kb.require(rng, "rng", torch.float32, (R, W), dev)
+    kb.require(packed.valid, "valid", torch.bool, (R, W), dev)
+    kb.require(packed.col, "col", torch.int32, (R, W), dev)
+    kb.require(packed.ground, "ground", torch.bool, (R, W), dev)
+    kb.require(packed.count, "count", torch.int32, (R,), dev)
+    labels = torch.empty((R, W), dtype=torch.int32, device=dev)
+    picked = torch.empty((R, W), dtype=torch.bool, device=dev)
+    kb.check(kb.library().lego_label_features(
+        rng.data_ptr(), packed.valid.data_ptr(), packed.col.data_ptr(),
+        packed.ground.data_ptr(), packed.count.data_ptr(), labels.data_ptr(),
+        picked.data_ptr(), R, W, _params(cfg), kb.stream_of(rng)),
+        "label_features")
+    label_features.launches += 1
+    return labels, picked
+
+
+label_features.launches = 0
 
 
 def extract_features(packed: SegmentedScan, outlier_s: torch.Tensor,

@@ -38,6 +38,8 @@ from lego_loam_tpu_torch.ops.compaction import segment_scan as tsegment_scan
 from lego_loam_tpu_torch.ops.projection import project_scan as tproject
 from lego_loam_tpu_torch.types import SegmentedScan
 
+from tests.test_torch_feature_rows import built_rows, packed_from, random_rows
+
 JCFG = jconfig_for("vlp16")
 TCFG = config_for("vlp16")
 
@@ -166,9 +168,9 @@ def test_feature_picks_vs_xla_and_pallas(segmented, monkeypatch):
     (jp, jo, jg, js), (tp, to, tg, ts) = segmented
     lab_x, pick_x = jfeat.label_features(jp, JCFG.replace(feature_backend="xla"))
     lab_p, pick_p = _jax_pallas_labels(jp, monkeypatch)
-    launches = tfeat.pick_features.launches
+    launches = tfeat.label_features.launches
     lab_t, pick_t = tfeat.label_features(tp, TCFG)
-    assert tfeat.pick_features.launches == launches         # CPU: plain path
+    assert tfeat.label_features.launches == launches        # CPU: plain path
     assert (_np(lab_t) == 2).sum() > 0 and (_np(lab_t) == -1).sum() > 0
     for lab, pick in ((lab_x, pick_x), (lab_p, pick_p)):
         np.testing.assert_array_equal(_np(lab_t), _np(lab))
@@ -193,6 +195,28 @@ def test_feature_picks_empty_scan(monkeypatch):
     lab_t, _ = tfeat.label_features(tp, TCFG)
     assert not _np(lab_t).any()
     np.testing.assert_array_equal(_np(lab_t), _np(lab_p))
+
+
+@pytest.mark.parametrize("rows", ["built", "random"])
+def test_label_features_plain_vs_xla_on_built_rows(segmented, rows):
+    """K2's plain version against the JAX package's XLA label step on the
+    packed rows of tests/test_torch_feature_rows.py (count < 12, = 12, = W,
+    ties, bands across sector boundaries, cut reaches, n_ok 0 / 1 / even /
+    odd), at this module's shapes and config, so the JAX side reuses the
+    program test_feature_picks_vs_xla_and_pallas compiles."""
+    jp = segmented[0][0]
+    arrays = (built_rows() if rows == "built" else random_rows(3))
+    tp = packed_from(*arrays, max_outlier=TCFG.max_outlier)
+    jpk = jp._replace(**{f: jnp.asarray(_np(getattr(tp, f))) for f in (
+        "rng", "valid", "col", "ground", "count")})
+    assert all(getattr(jpk, f).shape == getattr(jp, f).shape
+               and getattr(jpk, f).dtype == getattr(jp, f).dtype
+               for f in JSegmentedScan._fields)
+    lab_x, pick_x = jfeat.label_features(jpk, JCFG.replace(feature_backend="xla"))
+    lab_t, pick_t = tfeat.label_features_plain(tp, TCFG)
+    np.testing.assert_array_equal(_np(lab_t), _np(lab_x))
+    np.testing.assert_array_equal(_np(pick_t), _np(pick_x))
+    assert (_np(lab_t) == 2).any() and (_np(lab_t) == -1).any()
 
 
 def test_extract_features(segmented):

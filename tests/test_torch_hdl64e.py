@@ -3,11 +3,14 @@ package on 64 x 1800 range images whose rows come from elevation math (no
 ring channel), CPU.
 
 Two seeded synthetic scans of tests/test_hdl64e.py's course, at its config
-and through its KITTI ingest padding, so the JAX side reuses the programs
-that test compiles.  The raycaster casts each ring at the very elevation
-where two rows of the elevation math meet, so the row of every point
-hangs on the last bit of atan2 (the JAX package's own jitted and unjitted
-projections of these scans disagree on many pixels); every point is moved
+and through its KITTI ingest padding, so the JAX pipeline reuses the
+programs that test compiles.  The port runs process_scan over them once
+(a module fixture); its front-end arrays of the first scan are taken on
+the way, so the front-end test does not run the port's front end again.
+The raycaster casts each ring at the very elevation where two rows of
+the elevation math meet, so the row of every point hangs on the last bit
+of atan2 (the JAX package's own jitted and unjitted projections of these
+scans disagree on many pixels); every point is moved
 half a row up, range and azimuth kept, into the middle of its row, as a
 real sensor's beams are (tests/test_torch_sensor_rows.py::mid_row, which
 the HDL-64E path of chip_smoke.py uses too).  The front end (projection, segmentation labels,
@@ -35,10 +38,9 @@ from lego_loam_tpu.ops.compaction import segment_scan as jsegment_scan
 from lego_loam_tpu.ops.projection import project_scan as jproject
 from lego_loam_tpu_torch import config_for
 from lego_loam_tpu_torch.io import synthetic as syn
+from lego_loam_tpu_torch.models import pipeline as tpl
 from lego_loam_tpu_torch.models.pipeline import LegoLoamPipeline
 from lego_loam_tpu_torch.ops import features as tfeat
-from lego_loam_tpu_torch.ops.compaction import segment_scan as tsegment_scan
-from lego_loam_tpu_torch.ops.projection import project_scan as tproject
 
 from tests.test_hdl64e import CFG as JCFG
 from tests.test_torch_backend import _rot_err_deg
@@ -68,28 +70,54 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def scans():
     """(xyz, valid) of N_SCANS scans, padded as the KITTI ingest pads them,
-    and the ground-truth poses."""
+    the ground-truth poses and the raw raycasts."""
     world = syn.default_world(seed=9)
     poses = syn.circle_trajectory(6, radius=8.0, arc=0.12 * np.pi)[:N_SCANS]
-    out = []
+    out, raw_casts = [], []
     for k, (R, t) in enumerate(poses):
-        xyz, valid, _ = syn.raycast(world, R, t, TCFG.sensor, noise=0.02,
-                                    rng=np.random.default_rng(k))
+        xyz, valid, ring = syn.raycast(world, R, t, TCFG.sensor, noise=0.02,
+                                       rng=np.random.default_rng(k))
+        raw_casts.append((xyz, valid, ring))
         raw = np.concatenate([mid_row(xyz[valid], TCFG.sensor),
                               np.zeros((valid.sum(), 1), np.float32)], axis=1)
         out.append(pad_scan(raw, JCFG))
-    return out, poses
+    return out, poses, raw_casts
 
 
-def test_config_and_scan_match_the_jax_side():
+@pytest.fixture(scope="module")
+def port_run(scans):
+    """The port's process_scan over the scans on the CPU, with the first
+    scan's range image, segmentation and feature labels taken from the
+    pipeline's own calls."""
+    seen = {}
+
+    def first(name, fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            seen.setdefault(name, out)
+            return out
+        return wrapped
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tpl, "project_scan", first("img", tpl.project_scan))
+    mp.setattr(tpl, "segment_scan", first("seg", tpl.segment_scan))
+    mp.setattr(tfeat, "label_features", first("lab", tfeat.label_features))
+    try:
+        pipe = LegoLoamPipeline(TCFG, "cpu")
+        results = [pipe.process_scan(xyz, valid, None, t=0.1 * k)
+                   for k, (xyz, valid) in enumerate(scans[0])]
+    finally:
+        mp.undo()
+    return pipe, results, seen
+
+
+def test_config_and_scan_match_the_jax_side(scans):
     assert dataclasses.asdict(TCFG) == dataclasses.asdict(JCFG)
     assert not TCFG.sensor.use_ring
-    R, t = syn.circle_trajectory(6, radius=8.0, arc=0.12 * np.pi)[1]
-    a = syn.raycast(syn.default_world(seed=9), R, t, TCFG.sensor, noise=0.02,
-                    rng=np.random.default_rng(1))
+    R, t = scans[1][1]
     b = jsyn.raycast(jsyn.default_world(seed=9), R, t, JCFG.sensor,
                      noise=0.02, rng=np.random.default_rng(1))
-    for x, y in zip(a, b):
+    for x, y in zip(scans[2][1], b):
         assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
 
 
@@ -102,35 +130,36 @@ def _jax_frontend(xyz, valid):
     return img.valid, img.xyz, ground, seg, lab, pick
 
 
-def test_frontend_matches_jax(scans):
+def test_frontend_matches_jax(scans, port_run):
     xyz, valid = scans[0][0]
     jvalid, jxyz, jg, js, lab_j, pick_j = jax.jit(_jax_frontend)(
         jnp.asarray(xyz), jnp.asarray(valid))
-    ti = tproject(torch.from_numpy(xyz), torch.from_numpy(valid), TCFG, None)
+    ti = port_run[2]["img"]
     assert ti.rng.shape == (64, 1800)
     np.testing.assert_array_equal(ti.valid.numpy(), np.asarray(jvalid))
     np.testing.assert_array_equal(ti.xyz.numpy(), np.asarray(jxyz))
     assert ti.valid.numpy().sum() > 50000
 
-    tp, _, tg, ts = tsegment_scan(ti, TCFG)
+    tp, _, tg, ts = port_run[2]["seg"]
     np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
     for f in ("labels", "cluster_good", "outlier"):
         np.testing.assert_array_equal(getattr(ts, f).numpy(),
                                       np.asarray(getattr(js, f)), err_msg=f)
     assert ts.cluster_good.numpy().sum() > 5000
 
-    lab_t, pick_t = tfeat.label_features(tp, TCFG)
+    lab_t, pick_t = port_run[2]["lab"]
     np.testing.assert_array_equal(lab_t.numpy(), np.asarray(lab_j))
     np.testing.assert_array_equal(pick_t.numpy(), np.asarray(pick_j))
     assert (lab_t.numpy() == 2).sum() > 20 and (lab_t.numpy() == -1).sum() > 20
 
 
-def test_process_scan_matches_jax(scans):
-    data, poses = scans
-    jpipe, tpipe = JaxPipeline(JCFG), LegoLoamPipeline(TCFG, "cpu")
+def test_process_scan_matches_jax(scans, port_run):
+    data, poses, _ = scans
+    jpipe = JaxPipeline(JCFG)
+    tpipe, tresults, _ = port_run
     for k, (xyz, valid) in enumerate(data):
         jr = jpipe.process_scan(xyz, valid, None, t=0.1 * k)
-        tr = tpipe.process_scan(xyz, valid, None, t=0.1 * k)
+        tr = tresults[k]
         assert tr.stats == jr.stats
         assert tr.stats["n_sharp"] > 20
         assert (tr.mapped_pose is None) == (jr.mapped_pose is None)

@@ -5,14 +5,17 @@ fixture).  Run on a machine with an H100:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
-K1 (label propagation) and K2 (feature picks) must match exactly; K1 at
-every sensor preset's grid (one synthetic scan each) and on the built masks
-of tests/test_torch_label_prop.py (a serpentine through every tile border,
-a join across the column seam, full and empty grids, masks near the site
-and bond percolation thresholds, one column through all rows), on the
-VLS-128 grid and on ragged ones, where it must also equal a scipy
-reference; K2 on a VLP-16 scan and on an HDL-64E one (64 x 1800, rows from
-elevation math); K3 (k-NN)
+K1 (label propagation) and K2 (the whole feature-label step) must match
+exactly; K1 at every sensor preset's grid (one synthetic scan each) and on
+the built masks of tests/test_torch_label_prop.py (a serpentine through
+every tile border, a join across the column seam, full and empty grids,
+masks near the site and bond percolation thresholds, one column through
+all rows), on the VLS-128 grid and on ragged ones, where it must also
+equal a scipy reference; K2 (one launch a call) at every sensor preset
+(one synthetic scan each; HDL-64E with rows from elevation math) and on
+the built and random rows of tests/test_torch_feature_rows.py under 13
+configs (each threshold at, and one ulp either side of, a value the rows
+hold; edge_prominence 0, 1 and 4); K3 (k-NN)
 to rtol 1e-4 / atol 1e-3 on distances with every returned index a valid
 point at its distance (tests/test_knn_pallas.py's scheme), on shapes that
 exercise its split / merge passes: ragged and single splits, partial query
@@ -32,6 +35,8 @@ from lego_loam_tpu_torch.ops.compaction import segment_scan
 from lego_loam_tpu_torch.ops.ground import mark_ground
 from lego_loam_tpu_torch.ops.projection import project_scan
 
+from tests.test_torch_feature_rows import (THRESHOLD_CFGS, built_rows,
+                                           packed_from, random_rows)
 from tests.test_torch_label_prop import (CASES, SHAPES, label_args,
                                          label_case, reference_labels)
 from tests.test_torch_sensor_rows import mid_row
@@ -100,29 +105,54 @@ def test_label_prop_kernel_on_built_masks(dev, name, seed, shape):
     np.testing.assert_array_equal(got.cpu().numpy(), reference_labels(*masks))
 
 
-@pytest.mark.parametrize("preset", ["vlp16", "hdl64e"])
+def _k2_matches_plain(packed, cfg):
+    n = features.label_features.launches
+    lab, pick = features.label_features(packed, cfg)
+    assert features.label_features.launches == n + 1
+    lab_p, pick_p = features.label_features_plain(packed, cfg)
+    assert torch.equal(lab, lab_p) and torch.equal(pick, pick_p)
+    return lab, pick
+
+
+@pytest.mark.parametrize("preset", ["vlp16", "os1_16", "hdl32e", "os1_64",
+                                    "hdl64e", "vls128"])
 def test_pick_kernel_matches_plain(dev, img, preset):
+    """The fused K2 against its plain version on one synthetic scan of each
+    sensor preset (HDL-64E as chip_smoke.py's path: rows from elevation
+    math, each point moved into the middle of its row)."""
     cfg = config_for(preset, deskew=False)
-    if cfg.sensor.use_ring:
+    if preset == "vlp16":
         im = img
     else:
-        # the HDL-64E path of chip_smoke.py: rows from elevation math
-        xyz, valid, _ = syn.raycast(syn.default_world(9), np.eye(3),
-                                    np.array([1.0, 2.0, 1.7]), cfg.sensor,
-                                    noise=0.02, rng=np.random.default_rng(4))
-        im = project_scan(torch.as_tensor(mid_row(xyz, cfg.sensor), device=dev),
-                          torch.as_tensor(valid, device=dev), cfg, None)
-    packed = segment_scan(im, cfg)[0]
-    args = features.pick_inputs(packed, cfg) + (
-        cfg.sections_total, cfg.edge_feature_num_less, cfg.edge_feature_num,
-        cfg.surf_feature_num)
-    n = features.pick_features.launches
-    lab, pick = features.pick_features(*args)
-    assert features.pick_features.launches == n + 1
-    lab_p, pick_p = features.pick_features_plain(*args)
-    assert torch.equal(lab, lab_p) and torch.equal(pick, pick_p)
-    assert lab.shape[0] == cfg.sensor.n_scan
+        xyz, valid, ring = syn.raycast(syn.default_world(9), np.eye(3),
+                                       np.array([1.0, 2.0, 1.7]), cfg.sensor,
+                                       noise=0.02, rng=np.random.default_rng(4))
+        if cfg.sensor.use_ring:
+            ring = torch.as_tensor(ring, device=dev)
+        else:
+            xyz, ring = mid_row(xyz, cfg.sensor), None
+        im = project_scan(torch.as_tensor(xyz, device=dev),
+                          torch.as_tensor(valid, device=dev), cfg, ring)
+    lab, _ = _k2_matches_plain(segment_scan(im, cfg)[0], cfg)
+    assert lab.shape == (cfg.sensor.n_scan, cfg.sensor.horizon_scan)
     assert int((lab == 2).sum()) > 0 and int((lab == -1).sum()) > 0
+
+
+@pytest.mark.parametrize("variant", ["default", *THRESHOLD_CFGS])
+@pytest.mark.parametrize("rows", ["built_1800", "built_2048", "random_1800",
+                                  "random_1024"])
+def test_label_features_kernel_on_built_rows(dev, rows, variant):
+    """The fused K2 against its plain version on the built rows of
+    tests/test_torch_feature_rows.py (ties within and across lanes, bands
+    across sector boundaries, reach cut by column gaps, count < 12, = 12,
+    = W, n_ok 0 / 1 / even / odd) and on seeded random rows, under the
+    default config and with each threshold at, and one ulp either side
+    of, a value the rows hold."""
+    kind, W = rows.split("_")
+    arrays = (built_rows(int(W)) if kind == "built"
+              else random_rows(int(W), R=64, W=int(W)))
+    cfg = config_for("vlp16", **THRESHOLD_CFGS.get(variant, {}))
+    _k2_matches_plain(packed_from(*arrays, device=dev), cfg)
 
 
 @pytest.mark.parametrize("q_n,r_n,k,n_valid,dup", [
@@ -203,3 +233,18 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="co-resident"):
         segmentation.propagate_labels(big, bm, bm, bm, bm)
     assert segmentation.propagate_labels.launches == n
+    # K2: a wrong dtype, and a ring wider than the pick warps' registers
+    # hold (a sector of more than 32 x 16 cells), raise before any launch
+    rows = built_rows()
+    n = features.label_features.launches
+    packed = packed_from(*rows, device=dev)
+    with pytest.raises(ValueError):
+        features.label_features(packed._replace(rng=packed.rng.double()), CFG)
+    with pytest.raises(ValueError):
+        features.label_features(packed._replace(count=packed.count.long()), CFG)
+    wide = packed_from(*(np.tile(a, 2) if a.ndim == 2 else a for a in rows),
+                       device=dev)
+    assert wide.rng.shape == (16, 3600)
+    with pytest.raises(ValueError, match="do not fit"):
+        features.label_features(wide, CFG)
+    assert features.label_features.launches == n

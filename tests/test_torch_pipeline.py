@@ -33,7 +33,7 @@ def test_slice_matches_jax_pipeline():
     world = syn.default_world(seed=4)
     poses = syn.circle_trajectory(12, radius=8.0, arc=0.35 * np.pi)
     jpipe, tpipe = JaxPipeline(jcfg), LegoLoamPipeline(tcfg, "cpu")
-    wrappers = (segmentation.propagate_labels, features.pick_features, knn.knn)
+    wrappers = (segmentation.propagate_labels, features.label_features, knn.knn)
     launches = [w.launches for w in wrappers]
 
     R0, t0 = poses[0]
