@@ -41,7 +41,26 @@ Phases (any failure exits non-zero before the result lines):
      from elevation math); asserts that all three kernels, K1 among them,
      were launched on it and that the ATE is under tests/test_hdl64e.py's
      0.2 m; prints the same numbers as the slice;
-  6. torch.profiler, after every timed phase (a profiler session can leave
+  6. the loop-closure path at full width:
+     config_for("vlp16", deskew=False, loop_closure_enabled=True) at the
+     default capacities (max_keyframes=4096, max_map_surf=32768,
+     max_loop_edges=128, pg_gn_iters=6), only the course's own knobs set as
+     tests/test_loop_pipeline.py sets them (tests/torch_courses.py), over
+     its 16-scan out-and-back course with a loop check every 2nd scan;
+     asserts that a loop closed, that all three kernels ran on the path and
+     K3 inside every loop check, the ATE under 0.15 m and the final pose
+     within 0.12 m of the truth; prints ms a loop check (synchronised) by
+     part (gather + voxel, ICP, plane_information, solve_pose_graph), host
+     syncs a loop check by call site and peak device memory.  K3 is then
+     held against knn_plain at the loop check's own shapes (k = 1 for ICP,
+     k = 5 for plane_information) on the inputs of a check that closed;
+  7. the card against a CPU run: tests/torch_courses.py's SMALL config over
+     its 6-scan course, and its LOOP config over the shorter out-and-back
+     course, each through LegoLoamPipeline(cfg, "cuda") and (cfg, "cpu");
+     fails if on any scan a fused or keyframe pose differs by more than
+     1 cm / 0.1 deg, or the packed stats or loop_closed differ; prints the
+     largest gaps;
+  8. torch.profiler, after every timed phase (a profiler session can leave
      the launch path slower for the rest of the process): the device
      kernels one K2 call runs (more than 2 fails), beside those of the
      tensor-op prep it replaced; and 6 steady VLP-16 scans of a new
@@ -59,9 +78,11 @@ ring-scaled.
 deskew=False is the setting for motion-free scans: the raycaster casts
 every scan from one pose.  Every other knob is the default PipelineConfig.
 
-Prints the slice's and the HDL-64E path's numbers, K1's at each preset and
-K2's at HDL-64E as one JSON line, then the kernel results as {"kernels": [...]} (K1 at
-VLP-16's shape), and as the last line {"ok": true, "device": {...}}.
+Prints the slice's, the HDL-64E path's and the loop path's numbers, the
+card-against-CPU gaps, K1's at each preset and K2's at HDL-64E as one JSON
+line, then the kernel results as {"kernels": [...]} (K1 at VLP-16's shape;
+K3 with its launches a loop check and its loop shapes), and as the last
+line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -84,6 +105,8 @@ ATE_BOUND = 0.15        # m, the bound of tests/test_pipeline.py
 # channel), the course and bound of tests/test_hdl64e.py, 3 mapping solves
 HDL_SCANS, HDL_WARM, HDL_SYNC = 9, 3, 1
 HDL_ATE_BOUND = 0.2     # m, the bound of tests/test_hdl64e.py
+# the card against a CPU run of the same scans (fused and keyframe poses)
+C6_POS_M, C6_ROT_DEG = 0.01, 0.1
 K1_PRESETS = ("os1_16", "hdl32e", "os1_64", "hdl64e", "vls128")
 K2_PRESETS = ("vlp16",) + K1_PRESETS
 SLEEP_CYCLES = 40_000_000   # ~20 ms of device clock ahead of each timing
@@ -294,8 +317,16 @@ def k2_device_kernels(torch, k2):
     most 2, or fail), beside those of the prep it replaced, on the scans K2
     was timed on.  Run after every timed phase: a profiler session can
     leave the launch path slower for the rest of the process."""
+    from torch.profiler import ProfilerActivity, profile
+
     from lego_loam_tpu_torch.ops import features as fops
 
+    # a throwaway session first: the first profiler session of a process
+    # can record no device activity while the tracer starts up (seen on
+    # the H100 as an empty K2 count, once in four runs)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
     for tag, cfg, packed in k2.pop("_cases"):
         names = device_kernels(torch, lambda: fops.label_features(packed, cfg))
         if not names:
@@ -461,10 +492,7 @@ def run_slice(torch, cfg, scans, poses, dev, n_warm=WARM_SCANS,
     from lego_loam_tpu_torch.ops import features, knn, segmentation
 
     wrappers = (segmentation.propagate_labels, features.label_features, knn.knn)
-    # an elevation-math preset takes no ring channel
-    dscans = [(torch.as_tensor(xyz, device=dev), torch.as_tensor(valid, device=dev),
-               torch.as_tensor(ring, device=dev) if cfg.sensor.use_ring else None)
-              for xyz, valid, ring in scans]
+    dscans = device_scans(torch, cfg, scans, dev)
     # a throwaway pipeline first: library handles, allocator pools and the
     # kernel library load are set-up, not part of the measured run
     warm = pl.LegoLoamPipeline(cfg, dev)
@@ -490,15 +518,9 @@ def run_slice(torch, cfg, scans, poses, dev, n_warm=WARM_SCANS,
             # complete once the last scan of it returned
             t_win = time.perf_counter() - t_win
         if k >= n_warm + n_win:
-            torch.cuda.set_sync_debug_mode("warn")
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                pipe.process_scan(xyz, valid, ring)
-            torch.cuda.set_sync_debug_mode("default")
-            hits = [w for w in caught if "synchroniz" in str(w.message)]
+            _, hits = catch_syncs(torch, lambda: pipe.process_scan(xyz, valid, ring))
             syncs.append(len(hits))
-            sync_sites.update(f"{os.path.relpath(w.filename)}:{w.lineno}"
-                              for w in hits)
+            sync_sites.update(hits)
         else:
             pipe.process_scan(xyz, valid, ring)
     launches = {w.__name__: w.launches for w in wrappers}
@@ -546,6 +568,267 @@ def run_slice(torch, cfg, scans, poses, dev, n_warm=WARM_SCANS,
     }
 
 
+def device_scans(torch, cfg, scans, dev):
+    """Scans as tensors on `dev`; an elevation-math preset takes no ring."""
+    return [(torch.as_tensor(xyz, device=dev), torch.as_tensor(valid, device=dev),
+             torch.as_tensor(ring, device=dev) if cfg.sensor.use_ring else None)
+            for xyz, valid, ring in scans]
+
+
+def catch_syncs(torch, fn):
+    """Runs fn() under the CUDA sync-debug mode; returns (its result, the
+    call sites of the host syncs it made)."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
+
+
+def run_loop_path(torch, cfg, scans, stamps, positions, every, dev):
+    """The loop-closure path through process_scan at full width: a
+    throwaway pipeline over the first scans (one loop check among them),
+    then the course through a new one with the kernel counts set to 0
+    (K3's launches and the host syncs of each loop check counted around
+    it, the inputs of each check's ICP kept), then again with each part of
+    a loop check synchronised and timed.  Returns its numbers."""
+    from lego_loam_tpu_torch.models import loop as lc
+    from lego_loam_tpu_torch.models import pipeline as pl
+    from lego_loam_tpu_torch.ops import features, knn, segmentation
+
+    wrappers = (segmentation.propagate_labels, features.label_features, knn.knn)
+    dscans = device_scans(torch, cfg, scans, dev)
+    warm = pl.LegoLoamPipeline(cfg, dev, loop_check_every=every)
+    for (xyz, valid, ring), t in list(zip(dscans, stamps))[:3]:
+        warm.process_scan(xyz, valid, ring, t=t)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    checks, icp_inputs = [], []
+    orig_step, orig_icp = pl.lc.loop_closure_step, lc.icp_align
+
+    def counted_step(state, t, c):
+        k0 = knn.knn.launches
+        out, sites = catch_syncs(torch, lambda: orig_step(state, t, c))
+        checks.append({"knn_launches": knn.knn.launches - k0, "syncs": sites})
+        return out
+
+    def kept_icp(src, src_val, dst, dst_val, *a, **kw):
+        icp_inputs.append((src, src_val, dst, dst_val))
+        return orig_icp(src, src_val, dst, dst_val, *a, **kw)
+
+    pl.lc.loop_closure_step, lc.icp_align = counted_step, kept_icp
+    try:
+        pipe = pl.LegoLoamPipeline(cfg, dev, loop_check_every=every)
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        closed = [pipe.process_scan(xyz, valid, ring, t=t).loop_closed
+                  for (xyz, valid, ring), t in zip(dscans, stamps)]
+        t_run = time.perf_counter() - t_run
+    finally:
+        pl.lc.loop_closure_step, lc.icp_align = orig_step, orig_icp
+    launches = {w.__name__: w.launches for w in wrappers}
+    peak = torch.cuda.max_memory_allocated(dev)
+    truth = [p - positions[0] for p in positions]
+    errs = [float(np.linalg.norm(p - q)) for p, q in zip(pipe.trajectory, truth)]
+    for c, closed_k in zip(checks, closed[::every]):
+        c["closed"] = closed_k
+
+    # the parts of a loop check, each synchronised (a second run)
+    parts = {"gather_voxel": ("_keyframe_cloud", "voxel_downsample"),
+             "icp": ("icp_align",), "plane_information": ("plane_information",),
+             "solve_pose_graph": ("solve_pose_graph",)}
+    timing, cur = [], {}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            cur[key] = cur.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    def timed_step(state, t, c):
+        cur.clear()
+        out = timed(orig_step, "total")(state, t, c)
+        timing.append(dict(cur))
+        return out
+
+    saved = {name: getattr(lc, name) for names in parts.values() for name in names}
+    for key, names in parts.items():
+        for name in names:
+            setattr(lc, name, timed(saved[name], key))
+    pl.lc.loop_closure_step = timed_step
+    try:
+        pipe2 = pl.LegoLoamPipeline(cfg, dev, loop_check_every=every)
+        for (xyz, valid, ring), t in zip(dscans, stamps):
+            pipe2.process_scan(xyz, valid, ring, t=t)
+    finally:
+        pl.lc.loop_closure_step = orig_step
+        for name, fn in saved.items():
+            setattr(lc, name, fn)
+    ms = {key: float(np.mean([c.get(key, 0.0) for c in timing]))
+          for key in ("total",) + tuple(parts)}
+    ms["other"] = ms["total"] - sum(ms[k] for k in parts)
+    sites = Counter(s for c in checks for s in c["syncs"])
+    last_closed = max((i for i, c in enumerate(checks) if c["closed"]), default=None)
+    return {
+        "launches": launches, "ate_m": float(np.sqrt(np.mean(np.square(errs)))),
+        "final_err_m": errs[-1], "n_loops": int(pipe.mstate.n_loops),
+        "n_kf": int(pipe.mstate.n_kf), "loop_closed": closed,
+        "scans_per_s": len(dscans) / t_run, "loop_checks": len(checks),
+        "knn_launches_per_check": [c["knn_launches"] for c in checks],
+        "host_syncs_per_check": [len(c["syncs"]) for c in checks],
+        "sync_sites": dict(sites), "check_ms": ms,
+        "check_ms_each": [c.get("total", 0.0) for c in timing],
+        "peak_mem_bytes": int(peak),
+        "_icp": icp_inputs[last_closed] if last_closed is not None else None,
+    }
+
+
+def check_k3_loop(torch, icp_in):
+    """K3 at the loop check's shapes, on the inputs of a loop check that
+    closed on the card: k = 1 (each ICP iteration) and k = 5
+    (plane_information) of the source cloud against the history submap,
+    each held against knn_plain as check_k3 does."""
+    from lego_loam_tpu_torch.ops import knn as knn_ops
+
+    src, _, hist, hist_val = icp_in
+    out = {}
+    for k in (1, 5):
+        r = knn_case(torch, src.contiguous(), hist.contiguous(),
+                     hist_val.contiguous(), k)
+        Q, N = src.shape[0], hist.shape[0]
+        S = knn_ops.knn_splits(Q, N)
+        tiles = -(-Q // knn_ops.QUERY_TILE)
+        r.update(shape=f"{Q}x{N}", valid_refs=int(hist_val.sum()), splits=S,
+                 blocks=tiles * S)
+        out[f"k{k}"] = r
+        print(f"  K3 knn loop k={k}: {Q} x {N} ({r['valid_refs']} valid "
+              f"refs), S = {S} splits, {tiles * S} blocks: max|d2 err| "
+              f"{r['err']:.3g}, kernel {r['ms']:.4f} ms (call "
+              f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), "
+              f"{100 * r['bound_ms'] / r['ms']:.2f} % of it, identical "
+              f"indices {100 * r['same_idx']:.2f} %, bit-equal distances "
+              f"{100 * r['same_d2']:.2f} %")
+    return out
+
+
+def rot_gap_deg(Ra, Rb) -> float:
+    d = np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64)
+    s = 0.5 * np.linalg.norm([d[2, 1] - d[1, 2], d[0, 2] - d[2, 0], d[1, 0] - d[0, 1]])
+    return float(np.degrees(np.arcsin(min(s, 1.0))))
+
+
+def to_cpu(x):
+    """A state (NamedTuple of tensors) copied to the CPU."""
+    from lego_loam_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+
+    return state_from_numpy(state_to_numpy(x), "cpu")
+
+
+def pose_gaps(Ra, ta, Rb, tb):
+    """Largest translation (m) and rotation (deg) gap of two pose stacks."""
+    Ra, ta, Rb, tb = (x.cpu().numpy().reshape(shape) for x, shape in (
+        (Ra, (-1, 3, 3)), (ta, (-1, 3)), (Rb, (-1, 3, 3)), (tb, (-1, 3))))
+    if not len(ta):
+        return 0.0, 0.0
+    return (float(np.abs(ta - tb).max()),
+            max(rot_gap_deg(a, b) for a, b in zip(Ra, Rb)))
+
+
+def card_against_cpu(torch, cfg, scans, stamps, every, dev):
+    """The same scans through LegoLoamPipeline(cfg, "cuda") and (cfg,
+    "cpu"): on every scan the fused pose and every keyframe pose within
+    C6_POS_M / C6_ROT_DEG, the packed stats and loop_closed equal.  Each
+    of the card's mapping solves and loop checks is also run on the CPU
+    from the card's own state: the loop check must land within the same
+    bound and take the same decision; the solves' gaps are printed.
+    Returns the largest gaps and the list of faults."""
+    from lego_loam_tpu_torch.models import pipeline as pl
+
+    card = pl.LegoLoamPipeline(cfg, dev, loop_check_every=every)
+    host = pl.LegoLoamPipeline(cfg, "cpu", loop_check_every=every)
+    gap = {"fused_m": 0.0, "fused_deg": 0.0, "keyframe_m": 0.0, "keyframe_deg": 0.0,
+           "same_state_solve_m": 0.0, "same_state_solve_deg": 0.0,
+           "same_state_loop_m": 0.0, "same_state_loop_deg": 0.0}
+    faults, closed = [], []
+    orig_map, orig_loop = pl.mp.mapping_step, pl.lc.loop_closure_step
+
+    def keep(prefix, m, deg):
+        gap[prefix + "_m"] = max(gap[prefix + "_m"], m)
+        gap[prefix + "_deg"] = max(gap[prefix + "_deg"], deg)
+
+    def map_both(state, feats, opose, t, c):
+        if state is not card.mstate:
+            return orig_map(state, feats, opose, t, c)
+        _, T_cpu = orig_map(to_cpu(state), to_cpu(feats), to_cpu(opose), t, c)
+        out = orig_map(state, feats, opose, t, c)
+        keep("same_state_solve", *pose_gaps(out[1].R, out[1].t, T_cpu.R, T_cpu.t))
+        return out
+
+    def loop_both(state, t, c):
+        if state is not card.mstate:
+            return orig_loop(state, t, c)
+        s_cpu, r_cpu = orig_loop(to_cpu(state), t, c)
+        out = orig_loop(state, t, c)
+        if bool(out[1].closed) != bool(r_cpu.closed):
+            faults.append(f"a loop check from one state decided {bool(out[1].closed)} "
+                          f"on the card, {bool(r_cpu.closed)} on the CPU")
+        n = int(s_cpu.n_kf)
+        keep("same_state_loop", *pose_gaps(out[0].kf_R[:n], out[0].kf_t[:n],
+                                           s_cpu.kf_R[:n], s_cpu.kf_t[:n]))
+        return out
+
+    pl.mp.mapping_step, pl.lc.loop_closure_step = map_both, loop_both
+    try:
+        for k, ((xyz, valid, ring), t) in enumerate(zip(scans, stamps)):
+            ring = ring if cfg.sensor.use_ring else None
+            rc = card.process_scan(xyz, valid, ring, t=t)
+            rh = host.process_scan(xyz, valid, ring, t=t)
+            _compare_scan(k, card, host, rc, rh, gap, faults, closed)
+    finally:
+        pl.mp.mapping_step, pl.lc.loop_closure_step = orig_map, orig_loop
+    for what, bound_ in (("fused_m", C6_POS_M), ("keyframe_m", C6_POS_M),
+                         ("same_state_loop_m", C6_POS_M), ("fused_deg", C6_ROT_DEG),
+                         ("keyframe_deg", C6_ROT_DEG),
+                         ("same_state_loop_deg", C6_ROT_DEG)):
+        if gap[what] > bound_:
+            faults.append(f"largest {what} gap {gap[what]:.5g} over {bound_}")
+    return {"scans": len(scans), "loop_closed": closed, "gaps": gap}, faults
+
+
+def _compare_scan(k, card, host, rc, rh, gap, faults, closed):
+    """One scan of card_against_cpu: stats, loop_closed, fused pose and
+    every keyframe pose of the two pipelines."""
+    closed.append(rh.loop_closed)
+    if rc.stats != rh.stats:
+        faults.append(f"scan {k}: stats {rc.stats} != {rh.stats}")
+    if rc.loop_closed != rh.loop_closed:
+        faults.append(f"scan {k}: loop_closed {rc.loop_closed} != {rh.loop_closed}")
+    m, deg = pose_gaps(rc.fused_pose.R, rc.fused_pose.t, rh.fused_pose.R, rh.fused_pose.t)
+    gap["fused_m"], gap["fused_deg"] = max(gap["fused_m"], m), max(gap["fused_deg"], deg)
+    n = int(host.mstate.n_kf)
+    if int(card.mstate.n_kf) != n:
+        faults.append(f"scan {k}: {int(card.mstate.n_kf)} keyframes != {n}")
+        return
+    m, deg = pose_gaps(card.mstate.kf_R[:n], card.mstate.kf_t[:n],
+                       host.mstate.kf_R[:n], host.mstate.kf_t[:n])
+    gap["keyframe_m"] = max(gap["keyframe_m"], m)
+    gap["keyframe_deg"] = max(gap["keyframe_deg"], deg)
+
+
 def profile_scans(torch, cfg, scans, dev, n_warm=3, n_prof=6):
     """Device activity of `n_prof` steady scans under torch.profiler (after
     `n_warm` through the same new pipeline): device events a scan, device
@@ -556,9 +839,7 @@ def profile_scans(torch, cfg, scans, dev, n_warm=3, n_prof=6):
     from lego_loam_tpu_torch.models import pipeline as pl
 
     pipe = pl.LegoLoamPipeline(cfg, dev)
-    dscans = [(torch.as_tensor(xyz, device=dev), torch.as_tensor(valid, device=dev),
-               torch.as_tensor(ring, device=dev) if cfg.sensor.use_ring else None)
-              for xyz, valid, ring in scans[:n_warm + n_prof]]
+    dscans = device_scans(torch, cfg, scans[:n_warm + n_prof], dev)
     for xyz, valid, ring in dscans[:n_warm]:
         pipe.process_scan(xyz, valid, ring)
     torch.cuda.synchronize()
@@ -596,6 +877,9 @@ def main() -> None:
     from lego_loam_tpu_torch.kernels import build as kb
     from lego_loam_tpu_torch.ops.projection import project_scan
     from tests.test_torch_sensor_rows import mid_row
+    from tests.torch_courses import (LOOP, LOOP_CHECK_EVERY, LOOP_COURSE_KNOBS,
+                                     LOOP_FINAL_BOUND, LOOP_SHORT_OUT, SMALL,
+                                     loop_course, slice_course)
 
     dev = torch.device("cuda:0")
     card = card_line()
@@ -672,6 +956,80 @@ def main() -> None:
     if not np.isfinite(hl["ate_m"]) or hl["ate_m"] >= HDL_ATE_BOUND:
         fail(f"HDL-64E ATE {hl['ate_m']:.4f} m is not under {HDL_ATE_BOUND} m")
 
+    # the loop-closure path at full width: the default capacities, only the
+    # out-and-back course's own knobs changed
+    lcfg = config_for("vlp16", deskew=False, loop_closure_enabled=True,
+                      **LOOP_COURSE_KNOBS)
+    knobs = dict(LOOP_COURSE_KNOBS, loop_check_every=LOOP_CHECK_EVERY)
+    print("loop: config_for('vlp16', deskew=False, loop_closure_enabled=True), "
+          "the course's knobs " + ", ".join(f"{k}={v}" for k, v in knobs.items())
+          + "; defaults " + ", ".join(f"{k}={getattr(lcfg, k)}" for k in (
+              "max_keyframes", "max_map_surf", "kf_corner_cap", "kf_surf_cap",
+              "kf_outlier_cap", "max_loop_edges", "pg_gn_iters",
+              "loop_icp_iters", "history_keyframe_search_num")))
+    positions, lscans, stamps = loop_course(lcfg.sensor)
+    lp = run_loop_path(torch, lcfg, lscans, stamps, positions, LOOP_CHECK_EVERY, dev)
+    icp_in = lp.pop("_icp")
+    ms = lp["check_ms"]
+    print(f"loop: {len(lscans)} scans out and back, {lp['n_loops']} loops closed "
+          f"(scans {[k for k, c in enumerate(lp['loop_closed']) if c]}), "
+          f"{lp['n_kf']} keyframes, ATE {lp['ate_m']:.4f} m, final pose "
+          f"{lp['final_err_m']:.4f} m from the truth, {lp['scans_per_s']:.2f} "
+          f"scans/s, peak memory {lp['peak_mem_bytes'] / 2**20:.1f} MiB")
+    print(f"loop: {lp['loop_checks']} loop checks, "
+          f"{ms['total']:.2f} ms a check (synchronised): gather + voxel "
+          f"{ms['gather_voxel']:.2f}, ICP {ms['icp']:.2f}, plane_information "
+          f"{ms['plane_information']:.2f}, solve_pose_graph "
+          f"{ms['solve_pose_graph']:.2f}, other {ms['other']:.2f}; each "
+          f"{[round(x, 2) for x in lp['check_ms_each']]}")
+    print(f"loop: K3 launches per loop check {lp['knn_launches_per_check']}; "
+          f"host syncs per loop check {lp['host_syncs_per_check']}, by call "
+          f"site: {lp['sync_sites']}; kernel launches {lp['launches']}")
+    for key, count in lp["launches"].items():
+        if count == 0:
+            fail(f"kernel {key} was not launched on the loop path")
+    if min(lp["knn_launches_per_check"], default=0) == 0:
+        fail("K3 was not launched inside a loop check")
+    if lp["n_loops"] < 1 or icp_in is None:
+        fail("no loop closed on the out-and-back course")
+    if not np.isfinite(lp["ate_m"]) or lp["ate_m"] >= ATE_BOUND:
+        fail(f"loop path ATE {lp['ate_m']:.4f} m is not under {ATE_BOUND} m")
+    if not lp["final_err_m"] < LOOP_FINAL_BOUND:
+        fail(f"loop path final pose {lp['final_err_m']:.4f} m from the truth, "
+             f"not under {LOOP_FINAL_BOUND} m")
+    knn_row = results[2]
+    knn_row["loop_shapes"] = check_k3_loop(torch, icp_in)
+    knn_row["max_abs_err"] = max([knn_row["max_abs_err"]] + [
+        v["err"] for v in knn_row["loop_shapes"].values()])
+    knn_row["launches_per_loop_check"] = max(lp["knn_launches_per_check"])
+
+    # the card against a CPU run: the main path and the loop path
+    c6 = {}
+    poses6, scans6 = slice_course(cfg.sensor)
+    lpos, lscans6, lstamps = loop_course(cfg.sensor, LOOP_SHORT_OUT)
+    for tag, ccfg, cscans, cstamps in (
+            ("main", config_for("vlp16", **SMALL), scans6, [None] * len(scans6)),
+            ("loop", config_for("vlp16", **LOOP), lscans6, lstamps)):
+        c6[tag], faults = card_against_cpu(torch, ccfg, cscans, cstamps,
+                                           LOOP_CHECK_EVERY, dev)
+        g = c6[tag]["gaps"]
+        print(f"card vs cpu, {tag} path ({c6[tag]['scans']} scans, loop_closed "
+              f"{c6[tag]['loop_closed']}): largest gaps fused "
+              f"{g['fused_m'] * 1e3:.3f} mm / {g['fused_deg']:.4f} deg, keyframes "
+              f"{g['keyframe_m'] * 1e3:.3f} mm / {g['keyframe_deg']:.4f} deg "
+              f"(bound {C6_POS_M * 1e3:.0f} mm / {C6_ROT_DEG} deg); stats and "
+              f"loop_closed " + ("equal" if not faults else "checked")
+              + f"; from the card's own state, a mapping solve on the CPU "
+              f"within {g['same_state_solve_m'] * 1e3:.4f} mm / "
+              f"{g['same_state_solve_deg']:.5f} deg, a loop check within "
+              f"{g['same_state_loop_m'] * 1e3:.4f} mm / "
+              f"{g['same_state_loop_deg']:.5f} deg")
+        if faults:
+            fail(f"the card's {tag} path differs from the CPU run: "
+                 + "; ".join(faults))
+    if not any(c6["loop"]["loop_closed"]):
+        fail("no loop closed on the card-against-CPU loop course")
+
     # profiler phases last: they must not slow the timed ones
     k2_device_kernels(torch, results[1])
     sl["profile"] = pr = profile_scans(torch, cfg, scans, dev)
@@ -681,12 +1039,15 @@ def main() -> None:
           f"{pr['host_ms_per_scan']:.2f} ms a scan (host clock, under the "
           f"profiler): device idle {100 * pr['device_idle_share']:.1f} %")
 
-    print(json.dumps({"slice": sl, "hdl64e": hl, "k1_presets": results[0]["presets"],
+    print(json.dumps({"slice": sl, "hdl64e": hl, "loop": lp, "card_vs_cpu": c6,
+                      "k1_presets": results[0]["presets"],
                       "k2_hdl64e": results[1]["hdl64e"], "card": card}))
     print(json.dumps({"kernels": [
         {key: r[key] for key in ("name", "route", "source", "replaces",
                                  "launches", "max_abs_err", "ms", "plain_ms",
-                                 "bound_ms", "bound_by", "library_ms")}
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "launches_per_loop_check", "loop_shapes")
+         if key in r}
         for r in results]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -34,7 +34,9 @@ class SensorSpec:
 
     name: str
     n_scan: int                 # number of rings (rows of the range image)
-    horizon_scan: int           # azimuth bins (columns of the range image)
+    horizon_scan: int           # azimuth bins (columns of the range image);
+                                # kernel K2 takes at most 3082 on the card
+                                # (ops/features.check_k2_fits; presets <= 1800)
     ang_res_x: float            # azimuth resolution, degrees
     ang_res_y: float            # elevation resolution, degrees
     ang_bottom: float           # |elevation| of the lowest ring, degrees
@@ -136,7 +138,10 @@ class PipelineConfig:
                                              # 0 = reference-faithful
                                              # absolute threshold only)
     surf_threshold: float = 0.1
-    sections_total: int = 6
+    sections_total: int = 6                  # kernel K2 takes 1..8 on the
+                                             # card: LegoLoamPipeline(cfg,
+                                             # "cuda") refuses more
+                                             # (ops/features.check_k2_fits)
     edge_feature_num: int = 2                # sharp corners per sector
     edge_feature_num_less: int = 20          # less-sharp corners per sector
     surf_feature_num: int = 4                # flat surf points per sector

@@ -56,7 +56,7 @@ class MappingState(NamedTuple):
     kf_time: torch.Tensor       # (K,)
     n_kf: torch.Tensor          # int32 (device)
     # pose-graph bookkeeping: chain measurement from the previous keyframe
-    # plus padded loop edges (loop closure is not ported yet)
+    # plus padded loop edges (models/loop.py, models/posegraph.py)
     kf_meas_R: torch.Tensor     # (K, 3, 3)
     kf_meas_t: torch.Tensor     # (K, 3)
     loop_i: torch.Tensor        # (L,) int32
@@ -75,6 +75,9 @@ class MappingState(NamedTuple):
     map_surf_valid: torch.Tensor
     map_age: int                    # host: solves since the last refresh
     map_stale: bool                 # host: force a refresh at the next solve
+                                    # (set by compaction and, from the host
+                                    # copy of LoopResult.closed, by the
+                                    # pipeline after an accepted loop)
 
 
 def init_state(cfg: PipelineConfig, device) -> MappingState:
@@ -144,23 +147,35 @@ def _gather_local_map(state: MappingState, center: torch.Tensor, cfg: PipelineCo
     return corner_map, corner_valid, surf_map, surf_valid
 
 
+# The 5-point fits below run in float64 and return float32.  In float32 the
+# plane fit's normal equations (points metres from the origin, a patch a
+# few decimetres wide) lose most of their digits, and so do the small
+# eigenvalues of a near-collinear set; then any change of rounding order
+# -- cuBLAS against the CPU, or XLA's FMAs -- moves normals by percent and
+# flips the validity gates of some fits, and a mapping solve lands up to
+# ~0.1 deg away (an NVIDIA H100 against the CPU, chip_smoke.py's
+# card-against-CPU phase).  In float64 the card and the CPU take the same
+# gate decisions.
+
 def _fit_lines(nn_pts, nn_ok, cfg):
     """Line fit on 5-NN sets: line-like iff the largest covariance
     eigenvalue > 3x the second (mapOptmization.cpp:1101-1138).
     Returns (a, b, ok): two virtual line points and validity."""
-    c = nn_pts.mean(dim=1)
-    X = nn_pts - c[:, None, :]
-    cov = X.transpose(1, 2) @ X / nn_pts.shape[1]
+    P = nn_pts.double()
+    c = P.mean(dim=1)
+    X = P - c[:, None, :]
+    cov = X.transpose(1, 2) @ X / P.shape[1]
     lam = eigvalsh3(cov)
     ok = nn_ok & (lam[:, 2] > cfg.map_line_eig_ratio * lam[:, 1])
     v = principal_axis3(cov, lam)
-    return c + 0.1 * v, c - 0.1 * v, ok
+    f = nn_pts.dtype
+    return (c + 0.1 * v).to(f), (c - 0.1 * v).to(f), ok
 
 
 def _fit_planes(nn_pts, nn_ok, cfg):
     """Plane fit A n = -1 with residual and spread validation
     (mapOptmization.cpp:1183-1207).  Returns (n_unit, d, ok)."""
-    A = nn_pts
+    A = nn_pts.double()
     AtA = A.transpose(1, 2) @ A
     tr = torch.diagonal(AtA, dim1=-2, dim2=-1).sum(-1)[:, None, None]
     reg = (1e-6 * tr + 1e-6) * torch.eye(3, dtype=A.dtype, device=A.device)
@@ -176,7 +191,8 @@ def _fit_planes(nn_pts, nn_ok, cfg):
     lam = eigvalsh3(X.transpose(1, 2) @ X / A.shape[1])
     spread_ok = lam[:, 1] > cfg.map_plane_min_spread ** 2
     ok = nn_ok & finite & spread_ok & (resid <= cfg.map_plane_max_resid).all(dim=1)
-    return n_unit, torch.where(ok, d, 0.0), ok
+    f = nn_pts.dtype
+    return n_unit.to(f), torch.where(ok, d, 0.0).to(f), ok
 
 
 def _map_residuals(T: Pose, corner_pts, corner_ok, surf_pts, surf_ok,

@@ -5,12 +5,14 @@ stages driven by a thin host loop (counterpart of
   * front-end, every scan: projection + segmentation + features +
     scan-to-scan odometry + the pose fuse;
   * back-end, every cfg.mapping_process_every scans: scan-to-map +
-    keyframe update.
+    keyframe update;
+  * loop closure (cfg.loop_closure_enabled), every loop_check_every scans:
+    loop detection, ICP against the history submap and the pose-graph
+    solve (models/loop.py), applied on the device only when accepted.
 
 The host loop never waits on the card inside a scan except for one copy of
-the fused translation plus the packed stats at the end of process_scan.
-Loop closure, IMU, chunked replay and the pose graph are not ported yet:
-the constructor refuses a config that asks for them.
+the fused translation, the packed stats and the loop flag at the end of
+process_scan.  IMU and chunked replay are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,11 +24,12 @@ import numpy as np
 import torch
 
 from lego_loam_tpu_torch.config import PipelineConfig
+from lego_loam_tpu_torch.models import loop as lc
 from lego_loam_tpu_torch.models import mapping as mp
 from lego_loam_tpu_torch.models import odometry as odo
 from lego_loam_tpu_torch.models.fusion import fuse_pose
 from lego_loam_tpu_torch.ops.compaction import segment_scan
-from lego_loam_tpu_torch.ops.features import extract_features
+from lego_loam_tpu_torch.ops.features import check_k2_fits, extract_features
 from lego_loam_tpu_torch.ops.projection import project_scan
 from lego_loam_tpu_torch.utils.math3d import Pose
 from lego_loam_tpu_torch.utils.precision import apply_f32_policy
@@ -55,6 +58,7 @@ class FrameResult:
     odom_pose: Pose
     fused_pose: Pose
     mapped_pose: Pose | None
+    loop_closed: bool
     stats: dict
     wall_ms: float
 
@@ -63,13 +67,16 @@ class LegoLoamPipeline:
     """Host loop.  Feed scans with process_scan(); poses come back in the
     map frame of the first scan.  The pipeline runs where its state lives,
     on `device`: the card by default, where the kernels run; pass
-    ``device="cpu"`` for their plain versions."""
+    ``device="cpu"`` for their plain versions.  On the card a config that
+    kernel K2 cannot take raises ValueError here, before any scan."""
 
-    def __init__(self, cfg: PipelineConfig, device="cuda"):
-        if cfg.loop_closure_enabled:
-            raise NotImplementedError("loop closure is not ported yet")
+    def __init__(self, cfg: PipelineConfig, device="cuda",
+                 loop_check_every: int = 10):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.loop_check_every = loop_check_every
+        if self.device.type == "cuda":
+            check_k2_fits(cfg)
         apply_f32_policy()
         self.ostate = odo.init_state(cfg, self.device)
         self.mstate = mp.init_state(cfg, self.device)
@@ -116,16 +123,35 @@ class LegoLoamPipeline:
             self.mstate, mapped = mp.mapping_step(self.mstate, mfeats, opose,
                                                   t, cfg)
             self.n_kf_bound += 1
+
+        # the loop-check cadence is independent of the mapping cadence (the
+        # reference's 1 Hz thread made deterministic)
+        closed = torch.zeros((), dtype=torch.bool, device=dev)
+        loop_ran = (cfg.loop_closure_enabled
+                    and self.frame % self.loop_check_every == 0)
+        if loop_ran:
+            self.mstate, res = lc.loop_closure_step(self.mstate, t, cfg)
+            closed = res.closed
+        if mapped is not None or loop_ran:
             fused = fuse_pose(self.mstate, opose)
 
-        # the one host copy per scan: fused translation + packed stats
-        host = torch.cat([fused.t, stats.to(torch.float32)]).tolist()
+        # the one host copy per scan: fused translation, packed stats and
+        # the loop flag
+        host = torch.cat([fused.t, stats.to(torch.float32),
+                          closed.to(torch.float32)[None]]).tolist()
         self.trajectory.append(np.asarray(host[:3], np.float32))
+        loop_closed = bool(host[-1])
+        if loop_closed:
+            # keyframe poses moved: re-gather the local map at the next
+            # solve, which comes on a later scan (the JAX package sets this
+            # flag on the device)
+            self.mstate = self.mstate._replace(map_stale=True)
         wall_ms = (_time.perf_counter() - t0) * 1e3
         self.frame += 1
         return FrameResult(
             odom_pose=opose, fused_pose=fused, mapped_pose=mapped,
-            stats=dict(zip(STAT_NAMES, (int(v) for v in host[3:]))),
+            loop_closed=loop_closed,
+            stats=dict(zip(STAT_NAMES, (int(v) for v in host[3:-1]))),
             wall_ms=wall_ms)
 
     def keyframe_poses(self) -> np.ndarray:

@@ -212,6 +212,22 @@ def _cells_per_lane(W: int) -> int:
 
 MAX_CELLS_PER_LANE = 16     # the kernel's largest register run
 MAX_SECTORS = 8             # one warp a sector, eight warps a block
+MAX_RING_WIDTH = 6 * 32 * MAX_CELLS_PER_LANE + 10     # 3082 cells
+
+
+def check_k2_fits(cfg: PipelineConfig) -> None:
+    """Raise ValueError unless K2 takes this config's scans: 1 to
+    MAX_SECTORS sectors and rings of at most MAX_RING_WIDTH cells (every
+    sensor preset fits: 6 sectors, at most 1800 columns).  The plain
+    version takes any config."""
+    _check_k2_fits(cfg.sections_total, cfg.sensor.horizon_scan)
+
+
+def _check_k2_fits(S: int, W: int) -> None:
+    if not 1 <= S <= MAX_SECTORS or _cells_per_lane(W) > MAX_CELLS_PER_LANE:
+        raise ValueError(f"label_features: {S} sectors of a {W}-cell ring do "
+                         f"not fit K2 (1..{MAX_SECTORS} sectors, W <= "
+                         f"{MAX_RING_WIDTH})")
 
 
 def label_features(packed: SegmentedScan, cfg: PipelineConfig):
@@ -228,11 +244,7 @@ def label_features(packed: SegmentedScan, cfg: PipelineConfig):
         return label_features_plain(packed, cfg)
     R, W = rng.shape
     dev = rng.device
-    S = cfg.sections_total
-    if not 1 <= S <= MAX_SECTORS or _cells_per_lane(W) > MAX_CELLS_PER_LANE:
-        raise ValueError(f"label_features: {S} sectors of a {W}-cell ring do "
-                         f"not fit K2 (1..{MAX_SECTORS} sectors, W <= "
-                         f"{6 * 32 * MAX_CELLS_PER_LANE + 10})")
+    _check_k2_fits(cfg.sections_total, W)
     kb.require(rng, "rng", torch.float32, (R, W), dev)
     kb.require(packed.valid, "valid", torch.bool, (R, W), dev)
     kb.require(packed.col, "col", torch.int32, (R, W), dev)

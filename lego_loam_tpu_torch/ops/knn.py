@@ -4,8 +4,8 @@ counterpart of ``lego_loam_tpu.ops.knn``).
 Dense brute force: ||q - r||^2 = |q|^2 + |r|^2 - 2 q.r, then a masked
 argmin (odometry associations) or an exact k-NN (map 5-NN).  The exact
 k-NN is kernel K3 (``csrc/knn.cu``) on a CUDA tensor; on a CPU tensor it is
-the distance matrix plus a stable sort, which breaks ties to the lowest
-index like ``lax.top_k``.
+the distance matrix plus the first k columns of a stable sort, which break
+ties to the lowest index like ``lax.top_k``.
 
 K3 splits the reference set across blocks and merges the per-split top-k
 lists in a second pass; :func:`knn_splits` picks the split count.
@@ -44,15 +44,27 @@ def masked_argmin(d2: torch.Tensor, mask: torch.Tensor | None = None):
 
 def knn_plain(query, ref, ref_valid, k: int, query_tile: int = 0):
     """Exact k-NN from the distance matrix, in query tiles of `query_tile`
-    rows (0 = one tile).  Returns (idx (Q, k) int32, d2 (Q, k)) ascending."""
+    rows (0 = one tile).  Returns (idx (Q, k) int32, d2 (Q, k)) ascending,
+    ties to the lowest index (a stable sort's first k columns)."""
     Q = query.shape[0]
     step = query_tile if query_tile and Q > query_tile else max(Q, 1)
     idx, d2 = [], []
     for q0 in range(0, Q, step):
         d = sq_dist_matrix(query[q0: q0 + step], ref, ref_valid)
-        s = torch.sort(d, dim=1, stable=True)
-        idx.append(s.indices[:, :k].to(torch.int32))
-        d2.append(s.values[:, :k])
+        if k > d.shape[1]:
+            s = torch.sort(d, dim=1, stable=True)
+            idx.append(s.indices[:, :k].to(torch.int32))
+            d2.append(s.values[:, :k])
+            continue
+        # the first k columns of a stable sort, as k passes of "take the
+        # first minimum, then rule it out" (several times cheaper)
+        cols = []
+        for _ in range(k):
+            i, v = masked_argmin(d)
+            d.scatter_(1, i[:, None], float("inf"))
+            cols.append((i, v))
+        idx.append(torch.stack([i for i, _ in cols], 1).to(torch.int32))
+        d2.append(torch.stack([v for _, v in cols], 1))
     return torch.cat(idx), torch.cat(d2)
 
 

@@ -32,12 +32,8 @@ from lego_loam_tpu_torch.models import odometry as todo
 from lego_loam_tpu_torch.ops.voxel import voxel_downsample
 from lego_loam_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 
-# the small capacities of tests/test_pipeline.py, with the exact 5-NN (the
-# port's kernel is exact; the JAX default approximates on a TPU)
-SMALL = dict(deskew=False, max_keyframes=64, max_map_corner=2048,
-             max_map_surf=8192, kf_corner_cap=512, kf_surf_cap=2048,
-             kf_outlier_cap=512, max_scan_corner_ds=512, max_scan_surf_ds=2048,
-             nn_query_tile=256, mapping_process_every=2, nn_exact=True)
+from tests.torch_courses import SMALL
+
 JCFG = jconfig_for("vlp16", **SMALL)
 TCFG = config_for("vlp16", **SMALL)
 POS_TOL, ROT_TOL_DEG = 5e-3, 0.05

@@ -37,6 +37,23 @@ def test_port_imports_without_jax():
     assert int(out.stdout.strip()) >= 20     # every module of the port
 
 
+def test_shared_test_courses_import_without_jax():
+    """tests/torch_courses.py (the courses chip_smoke.py drives on the
+    card, where jax is not installed) imports neither jax nor the JAX
+    package."""
+    code = _IMPORT_ALL.split("import lego_loam_tpu_torch as pkg")[0] + (
+        "import tests.torch_courses as c\n"
+        "from lego_loam_tpu_torch import VLP16\n"
+        "bad = [m for m in sys.modules if m == 'lego_loam_tpu' "
+        "or m.startswith('lego_loam_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len(c.loop_course(VLP16, 1)[1]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "2"
+
+
 def _fields(cls):
     # the two packages' SensorSpec classes differ; compare presets by value
     return [(f.name, dataclasses.asdict(f.default)
