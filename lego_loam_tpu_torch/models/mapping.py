@@ -147,21 +147,25 @@ def _gather_local_map(state: MappingState, center: torch.Tensor, cfg: PipelineCo
     return corner_map, corner_valid, surf_map, surf_valid
 
 
-# The 5-point fits below run in float64 and return float32.  In float32 the
-# plane fit's normal equations (points metres from the origin, a patch a
-# few decimetres wide) lose most of their digits, and so do the small
-# eigenvalues of a near-collinear set; then any change of rounding order
-# -- cuBLAS against the CPU, or XLA's FMAs -- moves normals by percent and
-# flips the validity gates of some fits, and a mapping solve lands up to
-# ~0.1 deg away (an NVIDIA H100 against the CPU, chip_smoke.py's
-# card-against-CPU phase).  In float64 the card and the CPU take the same
-# gate decisions.
+# The 5-point fits below run in FIT_DTYPE, float64, and return float32.  In
+# float32 the plane fit's normal equations (points metres from the origin,
+# a patch a few decimetres wide) lose most of their digits, and so do the
+# small eigenvalues of a near-collinear set; then any change of rounding
+# order -- cuBLAS against the CPU, or XLA's FMAs -- moves normals by
+# percent and flips the validity gates of some fits, and a mapping solve
+# lands up to ~0.1 deg away (an NVIDIA H100 against the CPU,
+# chip_smoke.py's card-against-CPU phase).  In float64 the card and the CPU
+# take the same gate decisions.  The JAX package fits in float32: this is
+# a by-design divergence from it (tests/test_torch_loop_pipeline.py, and
+# tests/loop_parity_gaps.py, which runs the port with either precision).
+FIT_DTYPE = torch.float64
+
 
 def _fit_lines(nn_pts, nn_ok, cfg):
     """Line fit on 5-NN sets: line-like iff the largest covariance
     eigenvalue > 3x the second (mapOptmization.cpp:1101-1138).
     Returns (a, b, ok): two virtual line points and validity."""
-    P = nn_pts.double()
+    P = nn_pts.to(FIT_DTYPE)
     c = P.mean(dim=1)
     X = P - c[:, None, :]
     cov = X.transpose(1, 2) @ X / P.shape[1]
@@ -175,7 +179,7 @@ def _fit_lines(nn_pts, nn_ok, cfg):
 def _fit_planes(nn_pts, nn_ok, cfg):
     """Plane fit A n = -1 with residual and spread validation
     (mapOptmization.cpp:1183-1207).  Returns (n_unit, d, ok)."""
-    A = nn_pts.double()
+    A = nn_pts.to(FIT_DTYPE)
     AtA = A.transpose(1, 2) @ A
     tr = torch.diagonal(AtA, dim1=-2, dim2=-1).sum(-1)[:, None, None]
     reg = (1e-6 * tr + 1e-6) * torch.eye(3, dtype=A.dtype, device=A.device)

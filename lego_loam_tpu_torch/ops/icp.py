@@ -70,9 +70,11 @@ def _horn_rotation(S: torch.Tensor) -> torch.Tensor:
     S = sum w (src - mu_s)(dst - mu_d)^T, in float64.  The top eigenvector
     q of Horn's N(S) is the limit of repeated squaring of N + |N| I
     (positive semi-definite, top eigenvalue largest): the squared matrix,
-    over its trace, tends to q q^T, which gives R linearly.  A 1e-30 on
-    the w-w entry breaks the tie of S = 0 (nothing matched) toward the
-    identity."""
+    over its trace, tends to q q^T.  Its column with the largest diagonal
+    entry, normalised, is q up to sign, and R(q q^T) is a proper rotation
+    even where the top eigenvalue is (nearly) double, as for collinear
+    matches, whose spin about their line is free.  A 1e-30 on the w-w
+    entry breaks the tie of S = 0 (nothing matched) toward the identity."""
     n_of_s, r_of_qq = _horn_maps(S.device)
     N = (n_of_s @ S.to(torch.float64).reshape(9)).reshape(4, 4)
     shift = torch.linalg.matrix_norm(N) * torch.eye(4, dtype=torch.float64,
@@ -84,7 +86,9 @@ def _horn_rotation(S: torch.Tensor) -> torch.Tensor:
         M = M @ M
         if k % 4 == 3:          # eigenvalues in [0, 1] summing to 1: four
             M = M / torch.trace(M)      # squarings cannot underflow
-    return (r_of_qq @ M.reshape(16)).reshape(3, 3)
+    q = M.index_select(1, torch.argmax(torch.diagonal(M)).reshape(1))[:, 0]
+    q = q / torch.linalg.vector_norm(q)
+    return (r_of_qq @ torch.outer(q, q).reshape(16)).reshape(3, 3)
 
 
 def _kabsch(src, dst, w):

@@ -45,17 +45,15 @@ def masked_argmin(d2: torch.Tensor, mask: torch.Tensor | None = None):
 def knn_plain(query, ref, ref_valid, k: int, query_tile: int = 0):
     """Exact k-NN from the distance matrix, in query tiles of `query_tile`
     rows (0 = one tile).  Returns (idx (Q, k) int32, d2 (Q, k)) ascending,
-    ties to the lowest index (a stable sort's first k columns)."""
+    ties to the lowest index (a stable sort's first k columns).  Needs
+    1 <= k <= N, as ``lax.top_k`` does."""
+    if not 1 <= k <= ref.shape[0]:
+        raise ValueError(f"knn needs 1 <= k <= N = {ref.shape[0]}, got {k}")
     Q = query.shape[0]
     step = query_tile if query_tile and Q > query_tile else max(Q, 1)
     idx, d2 = [], []
     for q0 in range(0, Q, step):
         d = sq_dist_matrix(query[q0: q0 + step], ref, ref_valid)
-        if k > d.shape[1]:
-            s = torch.sort(d, dim=1, stable=True)
-            idx.append(s.indices[:, :k].to(torch.int32))
-            d2.append(s.values[:, :k])
-            continue
         # the first k columns of a stable sort, as k passes of "take the
         # first minimum, then rule it out" (several times cheaper)
         cols = []

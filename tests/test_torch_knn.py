@@ -59,6 +59,32 @@ def test_duplicate_points_take_lowest_indices():
     assert (idx.numpy() == np.arange(5)).all()
 
 
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_plain_knn_is_a_stable_sorts_first_columns(k):
+    """knn_plain's k argmin passes return the first k columns of a stable
+    sort of the distance matrix: ties (duplicate points) to the lowest
+    index, then the invalid references (1e30) in index order."""
+    rng = np.random.default_rng(k)
+    r = np.repeat(_cloud(rng, 40, scale=2.0), 3, axis=0)        # triples
+    q = _cloud(rng, 50, scale=2.0)
+    valid = np.ones(120, bool)
+    valid[rng.permutation(120)[:117]] = False                  # 3 valid left
+    q, r, valid = map(torch.from_numpy, (q, r, valid))
+    for vmask in (torch.ones(120, dtype=torch.bool), valid):
+        idx, d2 = tknn.knn_plain(q, r, vmask, k, query_tile=16)
+        s = torch.sort(tknn.sq_dist_matrix(q, r, vmask), dim=1, stable=True)
+        np.testing.assert_array_equal(idx.numpy(), s.indices[:, :k].numpy())
+        np.testing.assert_array_equal(d2.numpy(), s.values[:, :k].numpy())
+
+
+def test_plain_knn_refuses_k_outside_one_to_n():
+    q, r = torch.zeros((4, 3)), torch.ones((6, 3))
+    valid = torch.ones(6, dtype=torch.bool)
+    for k in (0, 7):
+        with pytest.raises(ValueError, match="1 <= k <= N"):
+            tknn.knn(q, r, valid, k)
+
+
 @pytest.mark.parametrize("q_n,r_n,s_n", [(4096, 32768, 16), (1024, 8192, 32),
                                          (100, 300, 1), (200, 600, 2),
                                          (37, 1000, 3), (5000, 32769, 13),

@@ -116,6 +116,27 @@ def test_kabsch_takes_a_proper_rotation_on_reflected_data():
     np.testing.assert_array_equal(z.R.numpy(), np.eye(3, dtype=np.float32))
 
 
+def test_kabsch_takes_a_proper_rotation_on_collinear_data():
+    """Collinear matches leave the spin about their line free (a double top
+    eigenvalue of Horn's matrix): the fit is still a proper rotation, maps
+    the line as the true motion does, and scores tr(R S) as high as the
+    JAX package's SVD."""
+    rng = np.random.default_rng(7)
+    u = np.array([0.6, 0.0, 0.8], np.float32)
+    src = (rng.uniform(-3, 3, (40, 1)) * u).astype(np.float32)
+    R0 = np.asarray(euler_to_mat(jnp.float32(0.1), jnp.float32(-0.2), jnp.float32(0.3)))
+    dst = (src @ R0.T + np.array([0.5, -0.1, 0.2], np.float32)).astype(np.float32)
+    w = np.ones(40, np.float32)
+    jT = jax.device_get(jicp._kabsch(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(w)))
+    R = ticp._kabsch(torch.from_numpy(src), torch.from_numpy(dst),
+                     torch.from_numpy(w)).R.numpy()
+    np.testing.assert_allclose(R @ R.T, np.eye(3), atol=1e-5)
+    assert abs(np.linalg.det(R) - 1.0) < 1e-5
+    np.testing.assert_allclose(R @ u, R0 @ u, atol=1e-4)
+    S = (src - src.mean(0)).T @ (dst - dst.mean(0))
+    assert np.trace(R @ S) >= np.trace(np.asarray(jT.R) @ S) - 1e-3
+
+
 def test_plane_information_matches_jax():
     src, dst, _, _ = _known_transform_cloud()
     rng = np.random.default_rng(1)

@@ -9,18 +9,24 @@ every scan (a loop closes on scans 6 and 8), the same n_loops.  The port's
 final pose lies within test_loop_pipeline.py's 0.12 m of the truth.
 
 Poses: fused poses on every scan and the keyframe poses at the end within
-2 cm / 0.3 deg of the JAX package's, wider than the 1 cm / 0.1 deg of
-tests/test_torch_pipeline.py.  Measured over the 10 scans: largest fused
-gap 6.4 mm and 0.146 deg (scan 9), keyframes 6.4 mm.  Why: the loop check
-is not where the two part -- from one state the two packages' loop
-checks agree far inside 1 cm / 0.1 deg (tests/test_torch_loop.py).  They
-part in the scan-to-map solves of this config (mapping on every scan, 1024
-surf points a scan).  The JAX package fits each 5-point plane through
-float32 normal equations of points metres from the origin, which keep few
-digits, so its normals move with the rounding order and some fits cross
-the validity gates; each solve then lands millimetres and hundredths of a
-degree away, and the chain carries that forward.  The port fits in
-float64 (models/mapping.py), so the gap is the JAX side's rounding.
+1 cm / 0.2 deg of the JAX package's: the 1 cm of
+tests/test_torch_pipeline.py, the rotation bound twice its 0.1 deg.
+Measured over the 10 scans: largest fused gap 6.42 mm and 0.146 deg
+(scan 9), keyframes 6.42 mm.  The loop check is not where the two part:
+from one state the two packages' loop checks agree far inside 1 cm / 0.1
+deg (tests/test_torch_loop.py).  They part in the scan-to-map solves of
+this config (mapping on every scan, 1024 surf points a scan), whose
+5-point plane fits solve normal equations of points metres from the
+origin.  In float32, as the JAX package fits them, few digits are left,
+so normals move with the rounding order (XLA's FMAs against torch's
+separate products) and some fits cross the validity gates; each solve
+then lands millimetres and hundredths of a degree away, and the chain
+carries that forward.  The port fits in float64 (models/mapping.py
+FIT_DTYPE, a by-design divergence, ROADMAP C).  The gap is not that
+choice: tests/loop_parity_gaps.py runs the port with float32 fits
+against the JAX package on these scans, and the gap is of the same size,
+10.34 mm and 0.110 deg (the float64 fits: 6.42 mm and 0.146 deg, as
+above), with the same loops closed.
 """
 
 import numpy as np
@@ -42,7 +48,7 @@ from tests.torch_courses import (
     loop_course,
 )
 
-POS_TOL, ROT_TOL_DEG = 2e-2, 0.3
+POS_TOL, ROT_TOL_DEG = 1e-2, 0.2
 
 
 @pytest.fixture(scope="module", autouse=True)
