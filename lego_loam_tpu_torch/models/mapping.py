@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from lego_loam_tpu_torch.config import PipelineConfig
+from lego_loam_tpu_torch.models.imu import blend_attitude
 from lego_loam_tpu_torch.models.odometry import (
     _chart_rows,
     _corner_distance,
@@ -285,12 +286,15 @@ def _fit_block(x: torch.Tensor, cap: int) -> torch.Tensor:
 
 
 def mapping_step(state: MappingState, feats: ScanFeatures, odom_pose: Pose,
-                 time, cfg: PipelineConfig):
+                 time, cfg: PipelineConfig, imu_buf=None):
     """One mapping solve on the odometry's reference clouds for this sweep
     (less-sharp / less-flat at the sweep end, plus outliers).  Returns
-    (new_state, mapped_pose).  The keyframe pool tensors of `state` are
-    updated in place; rebind to the returned state."""
+    (new_state, mapped_pose).  With an IMU buffer (models/imu.ImuBuffer),
+    the solved pose takes a share of the IMU's roll and pitch before it is
+    latched and stored.  The keyframe pool tensors of `state` are updated
+    in place; rebind to the returned state."""
     dev = odom_pose.t.device
+    time = torch.full((), float(time), dtype=torch.float32, device=dev)
     T_pred = predict_pose(state, odom_pose)
     corner_pts, corner_ok = voxel_downsample(
         feats.less_sharp.xyz, feats.less_sharp.valid, cfg.leaf_scan_corner,
@@ -309,6 +313,8 @@ def mapping_step(state: MappingState, feats: ScanFeatures, odom_pose: Pose,
                 state.map_surf_valid)
     T, _ = scan_to_map(T_pred, corner_pts, corner_ok, surf_pts, surf_ok,
                        *maps, cfg)
+    if imu_buf is not None:
+        T = blend_attitude(T, imu_buf, time, cfg)
     T = Pose(project_so3(T.R), T.t)
 
     # keyframe insertion (mapOptmization.cpp:1353-1454)
@@ -323,7 +329,6 @@ def mapping_step(state: MappingState, feats: ScanFeatures, odom_pose: Pose,
                                     cfg.leaf_outlier, cfg.kf_outlier_cap)
     T_prev = Pose(state.kf_R.index_select(0, prev)[0], last_t)
     Z = T_prev.inverse().compose(T)
-    time = torch.full((), float(time), dtype=torch.float32, device=dev)
 
     def ins(arr, val):
         # predicated single-row update, in place

@@ -32,7 +32,7 @@ class OdometryState(NamedTuple):
     rel: Pose                # last relative motion (constant-velocity seed)
     ref_corner: FeatureCloud  # previous less-sharp corners, at sweep end
     ref_surf: FeatureCloud    # previous less-flat surfs, at sweep end
-    att_anchor: torch.Tensor      # (3, 3) AHRS anchor (IMU path, not ported)
+    att_anchor: torch.Tensor      # (3, 3) AHRS anchor (models/imu.fold_attitude)
     att_anchor_valid: torch.Tensor  # bool
 
 

@@ -10,9 +10,15 @@ stages driven by a thin host loop (counterpart of
     loop detection, ICP against the history submap and the pose-graph
     solve (models/loop.py), applied on the device only when accepted.
 
+With an IMU stream (push_imu), the front end seeds the odometry from the
+integrated gyro, de-skews the features per point (cfg.deskew) and folds
+the AHRS attitude into the odometry pose, and each mapping solve blends in
+the IMU's roll and pitch (models/imu.py), in the JAX package's order.
+
 The host loop never waits on the card inside a scan except for one copy of
 the fused translation, the packed stats and the loop flag at the end of
-process_scan.  IMU and chunked replay are not ported yet.
+process_scan; the IMU buffer goes up once a scan without a wait.  Chunked
+replay is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from lego_loam_tpu_torch.config import PipelineConfig
+from lego_loam_tpu_torch.models import imu as imu_mod
 from lego_loam_tpu_torch.models import loop as lc
 from lego_loam_tpu_torch.models import mapping as mp
 from lego_loam_tpu_torch.models import odometry as odo
@@ -38,13 +45,29 @@ STAT_NAMES = ("n_valid_px", "n_ground", "n_segmented", "n_sharp", "n_flat")
 
 
 def frontend_step(ostate, xyz, valid, ring, bef_mapped: Pose, aft_mapped: Pose,
-                  cfg: PipelineConfig, use_ring: bool):
+                  t, cfg: PipelineConfig, use_ring: bool, imu_buf=None):
     """scan -> features -> odometry pose -> fused pose.  Returns
-    (ostate, feats, opose, rel, fused, stats (5,) int32)."""
+    (ostate, feats, opose, rel, fused, stats (5,) int32).
+
+    With imu_buf (models/imu.ImuBuffer) the IMU path runs in the
+    reference's order (featureAssociation.cpp): the odometry seed from the
+    integrated gyro and velocity change (:1639-1664), the per-point de-skew
+    of the feature clouds when cfg.deskew (:317-390, 560-607), and the AHRS
+    attitude fold into the odometry pose (:955-1042, 1697-1725).  t is the
+    scan's float32 start stamp, a 0-d tensor."""
+    if imu_buf is not None:
+        si = imu_mod.scan_imu(imu_buf, t, cfg)
+        ostate = ostate._replace(
+            rel=imu_mod.odometry_seed(ostate.rel, si, cfg.sensor.scan_period))
     img = project_scan(xyz, valid, cfg, ring if use_ring else None)
     packed, o_rel, ground, _ = segment_scan(img, cfg)
     feats = extract_features(packed, o_rel, cfg)
+    if imu_buf is not None and cfg.deskew:
+        feats = imu_mod.deskew_features(feats, imu_buf, t, cfg)
     ostate, opose, rel = odo.odometry_step(ostate, feats, cfg)
+    if imu_buf is not None:
+        ostate = imu_mod.fold_attitude(ostate, imu_buf, t, cfg)
+        opose = ostate.pose
     fused = aft_mapped.compose(bef_mapped.inverse().compose(opose))
     stats = torch.stack([
         img.valid.sum(), ground.sum(), packed.count.sum(),
@@ -80,6 +103,8 @@ class LegoLoamPipeline:
         apply_f32_policy()
         self.ostate = odo.init_state(cfg, self.device)
         self.mstate = mp.init_state(cfg, self.device)
+        self.imu_host = imu_mod.HostImuBuffer(cfg)
+        self.imu_used = False
         self.frame = 0
         # host upper bound on mstate.n_kf: at most one insert per solve, so
         # the device count is read only when this reaches capacity
@@ -94,6 +119,14 @@ class LegoLoamPipeline:
         if self.n_kf_bound >= cfg.max_keyframes - 1:
             self.mstate = mp.compact_keyframes(self.mstate, cfg)
             self.n_kf_bound = int(self.mstate.n_kf)
+
+    def push_imu(self, t, att_R, acc_body, gyro) -> None:
+        """Ingest a 9-DOF IMU sample (world attitude matrix, body specific
+        force, body angular rate), the reference's imuHandler
+        (featureAssociation.cpp:431-459).  On the host; the buffer goes to
+        the device once a scan."""
+        self.imu_host.push(t, att_R, acc_body, gyro)
+        self.imu_used = True
 
     def process_scan(self, xyz, valid, ring=None, t: float | None = None
                      ) -> FrameResult:
@@ -111,9 +144,13 @@ class LegoLoamPipeline:
         ring_t = (torch.as_tensor(ring, dtype=torch.int32, device=dev)
                   if ring is not None else None)
 
+        imu_buf = t_dev = None
+        if self.imu_used:
+            imu_buf = self.imu_host.to_device(dev)
+            t_dev = torch.full((), t, dtype=torch.float32, device=dev)
         self.ostate, feats, opose, rel, fused, stats = frontend_step(
             self.ostate, xyz, valid, ring_t, self.mstate.bef_mapped,
-            self.mstate.aft_mapped, cfg, use_ring)
+            self.mstate.aft_mapped, t_dev, cfg, use_ring, imu_buf=imu_buf)
 
         mapped = None
         if self.frame % cfg.mapping_process_every == 0:
@@ -121,7 +158,7 @@ class LegoLoamPipeline:
             mfeats = feats._replace(less_sharp=self.ostate.ref_corner,
                                     less_flat=self.ostate.ref_surf)
             self.mstate, mapped = mp.mapping_step(self.mstate, mfeats, opose,
-                                                  t, cfg)
+                                                  t, cfg, imu_buf=imu_buf)
             self.n_kf_bound += 1
 
         # the loop-check cadence is independent of the mapping cadence (the

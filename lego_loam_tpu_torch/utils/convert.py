@@ -3,8 +3,9 @@
 This is how a port stage starts from the exact state another implementation
 reached (the counterpart of carrying weights across): any NamedTuple whose
 class name and fields match one of the port's state types -- OdometryState,
-MappingState, ScanFeatures, FeatureCloud, Pose -- converts field by field.
-MappingState's map_age / map_stale are host values in the port.
+MappingState, ImuBuffer, ScanFeatures, FeatureCloud, Pose -- converts field
+by field.  MappingState's map_age / map_stale and ImuBuffer's ptr / count
+are host values in the port.
 """
 
 from __future__ import annotations
@@ -12,14 +13,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lego_loam_tpu_torch.models.imu import ImuBuffer
 from lego_loam_tpu_torch.models.mapping import MappingState
 from lego_loam_tpu_torch.models.odometry import OdometryState
 from lego_loam_tpu_torch.types import FeatureCloud, ScanFeatures
 from lego_loam_tpu_torch.utils.math3d import Pose
 
 _TYPES = {cls.__name__: cls for cls in
-          (OdometryState, MappingState, ScanFeatures, FeatureCloud, Pose)}
-_HOST = {("MappingState", "map_age"): int, ("MappingState", "map_stale"): bool}
+          (OdometryState, MappingState, ImuBuffer, ScanFeatures, FeatureCloud,
+           Pose)}
+_HOST = {("MappingState", "map_age"): int, ("MappingState", "map_stale"): bool,
+         ("ImuBuffer", "ptr"): int, ("ImuBuffer", "count"): int}
 
 
 def _is_namedtuple(x) -> bool:

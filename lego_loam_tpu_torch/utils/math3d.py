@@ -123,3 +123,41 @@ def pose_interp(p: Pose, s) -> Pose:
     w = so3_log(p.R)
     s = torch.as_tensor(s, dtype=p.R.dtype, device=p.R.device)
     return Pose(so3_exp(s[..., None] * w), s[..., None] * p.t)
+
+
+
+def _cso(a: torch.Tensor):
+    c, s = torch.cos(a), torch.sin(a)
+    return c, s, torch.ones_like(c), torch.zeros_like(c)
+
+
+def _mat(rows) -> torch.Tensor:
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def rot_x(a: torch.Tensor) -> torch.Tensor:
+    c, s, o, z = _cso(a)
+    return _mat([[o, z, z], [z, c, -s], [z, s, c]])
+
+
+def rot_y(a: torch.Tensor) -> torch.Tensor:
+    c, s, o, z = _cso(a)
+    return _mat([[c, z, s], [z, o, z], [-s, z, c]])
+
+
+def rot_z(a: torch.Tensor) -> torch.Tensor:
+    c, s, o, z = _cso(a)
+    return _mat([[c, -s, z], [s, c, z], [z, z, o]])
+
+
+def euler_to_mat(roll, pitch, yaw) -> torch.Tensor:
+    """R = Rz(yaw) @ Ry(pitch) @ Rx(roll) (ZYX / lidar convention)."""
+    return rot_z(yaw) @ rot_y(pitch) @ rot_x(roll)
+
+
+def mat_to_euler(R: torch.Tensor):
+    """Inverse of euler_to_mat.  Returns (roll, pitch, yaw)."""
+    pitch = -torch.asin(torch.clamp(R[..., 2, 0], -1.0, 1.0))
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return roll, pitch, yaw

@@ -26,15 +26,20 @@ for n in names:
     importlib.import_module(n)
 bad = [m for m in sys.modules if m == "lego_loam_tpu" or m.startswith("lego_loam_tpu.")]
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
+# the IMU slice's modules, among every module the walk imports
+IMU_SLICE = ("models.imu", "io.checkpoint", "io.kitti", "io.rosbag",
+             "io.synthetic", "utils.math3d", "utils.convert")
 
 
 def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20     # every module of the port
+    names = set(out.stdout.split())
+    assert len(names) >= 24     # every module of the port
+    assert {f"lego_loam_tpu_torch.{m}" for m in IMU_SLICE} <= names
 
 
 def test_shared_test_courses_import_without_jax():
@@ -47,11 +52,12 @@ def test_shared_test_courses_import_without_jax():
         "bad = [m for m in sys.modules if m == 'lego_loam_tpu' "
         "or m.startswith('lego_loam_tpu.')]\n"
         "assert not bad, bad\n"
-        "print(len(c.loop_course(VLP16, 1)[1]))\n")
+        "print(len(c.loop_course(VLP16, 1)[1]), len(c.fast_yaw_imu(0)),\n"
+        "      c.quat_from_mat(c.yaw_R(0.0)).tolist())\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "2"
+    assert out.stdout.strip() == "2 10 [0.0, 0.0, 0.0, 1.0]"
 
 
 def _fields(cls):

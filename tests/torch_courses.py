@@ -9,6 +9,10 @@ same configs over the same seeded synthetic scans.
     LOOP_COURSE_KNOBS are the course's own; loop_course() is its
     out-and-back course (out along x, back 0.3 m to the side), with its
     scan stamps, or a shorter one (LOOP_SHORT_OUT scans out).
+  * IMU: bench.py's fast-yaw de-skew course (fast_yaw_course,
+    fast_yaw_imu), tests/test_imu_deskew.py's in-sweep profiles and truth
+    buffers (accel_profile, truth_buffer), bench.py's aligned ATE
+    (aligned_ate) and a course written to a ROS bag (write_imu_bag).
 
 Scans come from the port's raycaster, which casts byte-identical scans to
 the JAX package's (tests/test_torch_import.py).
@@ -70,3 +74,150 @@ def loop_course(sensor, n_out: int = LOOP_OUT):
                          rng=np.random.default_rng(k))
              for k, t in enumerate(ts)]
     return ts, scans, [LOOP_SCAN_PERIOD * k for k in range(len(ts))]
+
+
+# ---------------------------------------------------------------- IMU
+
+def yaw_R(a) -> np.ndarray:
+    return np.array([[np.cos(a), -np.sin(a), 0.0],
+                     [np.sin(a), np.cos(a), 0.0],
+                     [0.0, 0.0, 1.0]])
+
+
+def accel_profile(t0_pos, v0, acc, w0, alpha, R_base=None, dt=0.1):
+    """tests/test_imu_deskew.py's quadratic in-sweep profile: world pose,
+    velocity and integrated gyro at sweep fraction u, for position
+    t0 + v0 tau + acc tau^2 / 2 and yaw w0 tau + alpha tau^2 / 2."""
+    R_base = np.eye(3) if R_base is None else R_base
+
+    def pose(u):
+        tau = u * dt
+        yaw = w0 * tau + 0.5 * alpha * tau * tau
+        return R_base @ yaw_R(yaw), t0_pos + v0 * tau + 0.5 * acc * tau * tau
+
+    def velo(u):
+        return v0 + acc * (u * dt)
+
+    def gyro_int(u):
+        tau = u * dt
+        return np.array([0.0, 0.0, w0 * tau + 0.5 * alpha * tau * tau])
+
+    return pose, velo, gyro_int
+
+
+def truth_buffer(t_start, pose, velo, gyro_int, n=40, pad=0.02, dt=0.1):
+    """tests/test_imu_deskew.py's ideal AHRS + dead-reckoner buffer over
+    one sweep, as numpy leaves (time, att, velo, shift, ang, ptr, count)
+    of the ring (QUE_LEN slots)."""
+    from lego_loam_tpu_torch.models.imu import QUE_LEN, ImuBuffer
+
+    ts = np.linspace(t_start - pad, t_start + dt + pad, n)
+    time = np.full((QUE_LEN,), -np.inf, np.float32)
+    att = np.tile(np.eye(3, dtype=np.float32), (QUE_LEN, 1, 1))
+    vel = np.zeros((QUE_LEN, 3), np.float32)
+    shf = np.zeros((QUE_LEN, 3), np.float32)
+    ang = np.zeros((QUE_LEN, 3), np.float32)
+    for i, t in enumerate(ts):
+        u = (t - t_start) / dt
+        R, p = pose(u)
+        time[i], att[i], vel[i], shf[i], ang[i] = t, R, velo(u), p, gyro_int(u)
+    return ImuBuffer(time, att, vel, shf, ang, np.int32(len(ts) - 1),
+                     np.int32(len(ts)))
+
+
+# bench.py's fast-yaw de-skew course: a 6 m circle at 0.45 m a scan (4.3
+# deg of yaw a scan) in world seed 3, each sweep cast along its in-sweep
+# motion with 2 cm range noise (seed 7000 + k), and an ideal AHRS and
+# accelerometer at 10 samples a sweep
+FAST_YAW_RADIUS, FAST_YAW_SPEED, FAST_YAW_IMU_PER_SCAN = 6.0, 0.45, 10
+
+
+def fast_yaw_pose(k: float):
+    """World pose at scan k (fractional k: inside the sweep)."""
+    a = FAST_YAW_SPEED * k / FAST_YAW_RADIUS
+    return yaw_R(a), np.array([FAST_YAW_RADIUS * np.sin(a),
+                               FAST_YAW_RADIUS * (1 - np.cos(a)), 1.6])
+
+
+def fast_yaw_course(sensor, n: int):
+    """(poses, scans, stamps) of the first n scans: scan k sweeps from pose
+    k to pose k + 1 and is stamped k * scan_period."""
+    world = syn.default_world(seed=3)
+    poses = [fast_yaw_pose(k) for k in range(n + 1)]
+    scans = [syn.raycast_swept(world, *poses[k], *poses[k + 1], sensor,
+                               noise=0.02, rng=np.random.default_rng(7000 + k))
+             for k in range(n)]
+    return poses[:n], scans, [k * sensor.scan_period for k in range(n)]
+
+
+def fast_yaw_imu(k: int, dt: float = 0.1):
+    """The IMU samples (t, att_R, acc_body, gyro) covering sweep k, pushed
+    before the scan: constant-speed circular motion, so the specific force
+    is the centripetal acceleration plus the gravity reaction (the port's
+    GRAVITY: bench.py's 9.80665 is a quirk not copied, ROADMAP C)."""
+    from lego_loam_tpu_torch.models.imu import GRAVITY
+
+    wz = FAST_YAW_SPEED / FAST_YAW_RADIUS / dt
+    out = []
+    for j in range(FAST_YAW_IMU_PER_SCAN):
+        u = k + j / FAST_YAW_IMU_PER_SCAN
+        R, _ = fast_yaw_pose(u)
+        a = FAST_YAW_SPEED * u / FAST_YAW_RADIUS
+        a_w = (FAST_YAW_SPEED / dt) ** 2 / FAST_YAW_RADIUS * np.array(
+            [-np.sin(a), np.cos(a), 0.0])
+        acc_body = R.T @ (a_w + np.array([0.0, 0.0, GRAVITY]))
+        out.append((u * dt, R, acc_body, np.array([0.0, 0.0, wz])))
+    return out
+
+
+def aligned_ate(est, gt) -> float:
+    """ATE RMSE (m) of (N, 3) positions after the rigid least-squares
+    (Umeyama) alignment of est onto gt: lego_loam_tpu.utils.metrics.
+    ate_rmse, which bench.py reports for its de-skew trio (jax-free copy)."""
+    est, gt = np.asarray(est, np.float64), np.asarray(gt, np.float64)
+    mu_e, mu_g = est.mean(0), gt.mean(0)
+    U, _, Vt = np.linalg.svd((gt - mu_g).T @ (est - mu_e) / est.shape[0])
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    R = U @ S @ Vt
+    est = est @ R.T + (mu_g - R @ mu_e)
+    return float(np.sqrt(np.mean(np.sum((est - gt) ** 2, axis=1))))
+
+
+def quat_from_mat(R) -> np.ndarray:
+    """(3, 3) rotation -> [x, y, z, w] unit quaternion (sensor_msgs/Imu
+    orientation), the inverse of io/rosbag.quat_to_mat."""
+    R = np.asarray(R, np.float64)
+    tr = np.trace(R)
+    if tr > 0.0:
+        w = np.sqrt(1.0 + tr) / 2.0
+        x, y, z = (R[2, 1] - R[1, 2]) / (4 * w), (R[0, 2] - R[2, 0]) / (4 * w), \
+            (R[1, 0] - R[0, 1]) / (4 * w)
+    else:
+        i = int(np.argmax(np.diag(R)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        q = np.empty(3)
+        q[i] = np.sqrt(1.0 + R[i, i] - R[j, j] - R[k, k]) / 2.0
+        q[j] = (R[j, i] + R[i, j]) / (4 * q[i])
+        q[k] = (R[k, i] + R[i, k]) / (4 * q[i])
+        w = (R[k, j] - R[j, k]) / (4 * q[i])
+        x, y, z = q
+    return np.array([x, y, z, w])
+
+
+def write_imu_bag(path: str, scans, stamps, imu, scan_period: float) -> None:
+    """A ROS bag of a course, laid out as a recorded drive: for each scan,
+    its IMU samples (/imu/data, orientation as a quaternion), then the
+    cloud of its valid points with their rings (/velodyne_points, stamped
+    at the sweep start, recorded at the sweep end)."""
+    from tests import rosbag_writer as bw
+
+    msgs = []
+    for (xyz, valid, ring), t, samples in zip(scans, stamps, imu):
+        for ti, R, acc, gyro in samples:
+            msgs.append(("/imu/data", "sensor_msgs/Imu", ti,
+                         bw.encode_imu(ti, quat_from_mat(R), gyro, acc)))
+        msgs.append(("/velodyne_points", "sensor_msgs/PointCloud2", t + scan_period,
+                     bw.encode_pointcloud2(t, xyz[valid], ring[valid].astype(np.uint16))))
+    bw.write_bag(path, msgs)
