@@ -8,8 +8,9 @@ Phases (any failure exits non-zero before the result lines):
 
   1. card: name and power limit from nvidia-smi, torch and CUDA versions;
      refuses to run without a CUDA device;
-  2. build: nvcc builds the three kernels of csrc/ (sm_90a) and prints the
-     time and the register / shared-memory use ptxas reports;
+  2. build: nvcc builds the four kernels of csrc/ (sm_90a; one nvcc a
+     source, all started together, then one link) and prints the time and
+     the register / shared-memory use ptxas reports;
   3. kernels against their plain PyTorch versions on the card, on inputs
      from real synthetic VLP-16 scans at the shapes of the main path (and
      K1 at every sensor preset, below):
@@ -26,19 +27,41 @@ Phases (any failure exits non-zero before the result lines):
      is its bytes alone) and the kernel's share of it.  K3 prints its
      split count and grid, and, as information only, the time of
      torch.topk(torch.cdist(q, r)), a two-call composition that the port
-     never calls;
+     never calls.  E1, the 6x6 degeneracy projection (no TPU kernel behind
+     it: it takes torch.linalg.eigh's host sync off the path), is held
+     against its plain version (float32 eigh) on the H of the slice's first
+     7 scans (every odometry round and mapping solve) and on seeded spectra
+     at both thresholds: P within 1e-5, eigenvalues within 1e-5 of |H|,
+     equal keep masks (a flip is allowed, and counted, only for an
+     eigenvalue within that rounding of the threshold); timed on one 6x6
+     beside torch.linalg.eigh + the projection (library_ms);
   4. the slice: LegoLoamPipeline(config_for("vlp16", deskew=False), "cuda")
      at the full default capacities (max_keyframes=4096) over 30 scans of a
-     circle course with 1 cm range noise; asserts that all three kernels
+     circle course with 1 cm range noise; asserts that all four kernels
      were launched on that path and that the fused-pose ATE is under
      0.15 m; prints steady-state scans/s, per-stage ms, host syncs per scan
-     and peak device memory;
+     and peak device memory, and fails unless a plain and a mapping scan
+     each make exactly 1 host sync (process_scan's one copy).  A second
+     process_scan run of the same scans prints the card's run-to-run gap.
+     Then the same 30 scans through process_chunk in chunks of 10 host
+     arrays, with and without collect_stats: fused and mapped poses
+     within 1 mm / 0.01 deg of the per-scan run, equal stats, did_map and
+     keyframe count, ATE under 0.15 m, all four kernels launched inside
+     process_chunk, host syncs per chunk 1 with collect_stats and 0
+     without (printed by call site), scans/s of both modes; 6 scans of
+     process_scan with collect_stats=False must make no host sync.  The
+     chunked run's map is exported (export_maps to a temporary directory,
+     every file read back with load_pcd equal to global_map /
+     keyframe_poses), dump_keyframe and dump_stages run on the card, and
+     the native reader, built from native/fast_io.cpp into build/native/,
+     must be the one in use, read_bin of a real scan written as a KITTI
+     .bin byte-equal to it and pad_scan_native equal to pad_scan;
   5. the HDL-64E path (KITTI's sensor): config_for("hdl64e", deskew=False)
      at its default, ring-scaled capacities, 9 scans (3 mapping solves) of
      tests/test_hdl64e.py's course with 2 cm range noise, each point moved
      half a row up into the middle of its elevation row (mid_row, from
      tests/test_torch_sensor_rows.py), fed without a ring channel (rows
-     from elevation math); asserts that all three kernels, K1 among them,
+     from elevation math); asserts that all four kernels, K1 among them,
      were launched on it and that the ATE is under tests/test_hdl64e.py's
      0.2 m; prints the same numbers as the slice;
   6. the loop-closure path at full width:
@@ -47,13 +70,18 @@ Phases (any failure exits non-zero before the result lines):
      max_loop_edges=128, pg_gn_iters=6), only the course's own knobs set as
      tests/test_loop_pipeline.py sets them (tests/torch_courses.py), over
      its 16-scan out-and-back course with a loop check every 2nd scan;
-     asserts that a loop closed, that all three kernels ran on the path and
+     asserts that a loop closed, that all four kernels ran on the path and
      K3 inside every loop check, the ATE under 0.15 m and the final pose
      within 0.12 m of the truth; prints ms a loop check (synchronised) by
      part (gather + voxel, ICP, plane_information, solve_pose_graph), host
      syncs a loop check by call site and peak device memory.  K3 is then
      held against knn_plain at the loop check's own shapes (k = 1 for ICP,
-     k = 5 for plane_information) on the inputs of a check that closed;
+     k = 5 for plane_information) on the inputs of a check that closed.
+     Then the same course through process_chunk in chunks of 4 (the
+     course's 0.55 s stamps as the sensor's scan period): the same loops
+     closed as through process_scan, the final pose within 0.12 m, and at
+     most 1 + one host sync a loop check in a chunk (the pending loop flag
+     a later solve must read);
   7. the IMU path at full width: config_for("vlp16"), the default
      PipelineConfig (deskew=True, max_keyframes=4096, 8192 / 32768 map
      points), over the first 48 scans of bench.py's fast-yaw course
@@ -75,13 +103,17 @@ Phases (any failure exits non-zero before the result lines):
      fast-yaw course with its IMU stream, each through
      LegoLoamPipeline(cfg, "cuda") and (cfg, "cpu"); fails if on any scan a
      fused or keyframe pose differs by more than 1 cm / 0.1 deg, or the
-     packed stats or loop_closed differ; prints the largest gaps;
+     packed stats or loop_closed differ; prints the largest gaps; and a
+     chunk arm: SMALL over its 6 scans through process_chunk (chunks of 3)
+     on the card against process_scan on the CPU, at the same bounds with
+     equal stats and did_map;
   9. torch.profiler, after every timed phase (a profiler session can leave
      the launch path slower for the rest of the process): the device
      kernels one K2 call runs (more than 2 fails), beside those of the
      tensor-op prep it replaced; 6 steady VLP-16 scans of a new pipeline:
      device events a scan, device busy ms a scan and the device's idle
-     share; and the same on the IMU course de-skewed with and without the
+     share; the same over one steady chunk of 10 scans (collect_stats=
+     False); and the same on the IMU course de-skewed with and without the
      IMU, whose difference is the IMU's device events a scan.
 
 K1 is also held against its plain version, and timed beside its bound, on
@@ -96,16 +128,18 @@ deskew=False is the setting for motion-free scans: the raycaster casts
 every scan from one pose; the IMU phase's swept scans run the default
 deskew=True.  Every other knob is the default PipelineConfig.
 
-Prints the slice's, the HDL-64E path's, the loop path's and the IMU
-phase's numbers, the
-card-against-CPU gaps, K1's at each preset and K2's at HDL-64E as one JSON
-line, then the kernel results as {"kernels": [...]} (K1 at VLP-16's shape;
-K3 with its launches a loop check and its loop shapes), and as the last
-line {"ok": true, "device": {...}}.
+Prints the slice's, the HDL-64E path's, the loop path's, the IMU phase's,
+the chunk phases' and the export's numbers, the card-against-CPU gaps,
+K1's at each preset, K2's at HDL-64E and E1's extras as one JSON line,
+then the kernel results as {"kernels": [...]} (K1 at VLP-16's shape; K3
+with its launches a loop check and its loop shapes; every kernel with its
+launches on the slice and inside the chunked run), and as the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -140,6 +174,17 @@ SLEEP_CYCLES = 40_000_000   # ~20 ms of device clock ahead of each timing
 # counted against the same 32-bit lane rate
 MEM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12      # float64 outside the tensor cores (E1's Jacobi)
+# chunked replay: the slice course in chunks of CHUNK_C scans, the loop
+# course in chunks of LOOP_CHUNK_C, each held to its per-scan run on the card
+CHUNK_C, LOOP_CHUNK_C = 10, 4
+CHUNK_POS_M, CHUNK_ROT_DEG = 1e-3, 0.01
+C6_CHUNK_C = 3
+# E1: float64 operations of one Jacobi rotation (angle ~10, two rows and
+# two columns of A and two columns of V, 6 x (4 mul + 2 add) each) and of
+# a sweep's off-diagonal sum (15 squares and adds)
+E1_ROTATION_OPS, E1_SWEEP_OPS = 10 + 3 * 36, 30
+E1_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -190,12 +235,21 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(n_bytes: int, ops: float):
+def bound(n_bytes: int, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """(bound_ms, bound_by): the least time the card could take for work
-    that moves `n_bytes` once and does `ops` 32-bit operations."""
+    that moves `n_bytes` once and does `ops` operations (32-bit unless
+    `ops_per_s` says otherwise)."""
     t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_wrappers():
+    """The wrappers of the four kernels, each counting its launches."""
+    from lego_loam_tpu_torch.ops import eig6, features, knn, segmentation
+
+    return (segmentation.propagate_labels, features.label_features, knn.knn,
+            eig6.eig6)
 
 
 def make_scans(cfg, world, poses, noise=0.01):
@@ -526,10 +580,9 @@ def run_slice(torch, cfg, scans, poses, dev, n_warm=WARM_SCANS,
     pushes included), and again with each stage synchronised; returns its
     numbers."""
     from lego_loam_tpu_torch.models import pipeline as pl
-    from lego_loam_tpu_torch.ops import features, knn, segmentation
     from tests.torch_courses import aligned_ate
 
-    wrappers = (segmentation.propagate_labels, features.label_features, knn.knn)
+    wrappers = kernel_wrappers()
     dscans = device_scans(torch, cfg, scans, dev)
     feed = feeder(dscans, stamps, imu)
     # a throwaway pipeline first: library handles, allocator pools and the
@@ -547,6 +600,7 @@ def run_slice(torch, cfg, scans, poses, dev, n_warm=WARM_SCANS,
     t_win = None
     syncs = []
     sync_sites = Counter()
+    rows = []
     n_win = len(dscans) - n_warm - n_sync
     for k in range(len(dscans)):
         if k == n_warm:
@@ -557,11 +611,12 @@ def run_slice(torch, cfg, scans, poses, dev, n_warm=WARM_SCANS,
             # complete once the last scan of it returned
             t_win = time.perf_counter() - t_win
         if k >= n_warm + n_win:
-            _, hits = catch_syncs(torch, lambda: feed(pipe, k))
+            res, hits = catch_syncs(torch, lambda: feed(pipe, k))
             syncs.append(len(hits))
             sync_sites.update(hits)
         else:
-            feed(pipe, k)
+            res = feed(pipe, k)
+        rows.append(res)
     launches = {w.__name__: w.launches for w in wrappers}
     peak = torch.cuda.max_memory_allocated(dev)
 
@@ -605,7 +660,7 @@ def run_slice(torch, cfg, scans, poses, dev, n_warm=WARM_SCANS,
         "frontend_ms": float(np.mean(fe_ms)), "mapping_ms": float(np.mean(map_ms)),
         "host_syncs_per_scan": syncs, "sync_sites": dict(sync_sites),
         "peak_mem_bytes": int(peak),
-        "n_kf": int(pipe.mstate.n_kf),
+        "n_kf": int(pipe.mstate.n_kf), "_rows": rows,
     }
 
 
@@ -639,9 +694,9 @@ def run_loop_path(torch, cfg, scans, stamps, positions, every, dev):
     a loop check synchronised and timed.  Returns its numbers."""
     from lego_loam_tpu_torch.models import loop as lc
     from lego_loam_tpu_torch.models import pipeline as pl
-    from lego_loam_tpu_torch.ops import features, knn, segmentation
+    from lego_loam_tpu_torch.ops import knn
 
-    wrappers = (segmentation.propagate_labels, features.label_features, knn.knn)
+    wrappers = kernel_wrappers()
     dscans = device_scans(torch, cfg, scans, dev)
     warm = pl.LegoLoamPipeline(cfg, dev, loop_check_every=every)
     for (xyz, valid, ring), t in list(zip(dscans, stamps))[:3]:
@@ -911,22 +966,39 @@ def profile_scans(torch, cfg, scans, dev, n_warm=3, n_prof=6, stamps=None,
                   imu=None):
     """Device activity of `n_prof` steady scans under torch.profiler (after
     `n_warm` through the same new pipeline; with `imu`, each scan's samples
-    pushed first): device events a scan, device busy ms a scan (the union
-    of their intervals), host ms a scan under the profiler, and the
-    device's idle share of that window."""
-    from torch.profiler import ProfilerActivity, profile
-
+    pushed first): see profile_window."""
     from lego_loam_tpu_torch.models import pipeline as pl
 
     pipe = pl.LegoLoamPipeline(cfg, dev)
     feed = feeder(device_scans(torch, cfg, scans[:n_warm + n_prof], dev), stamps, imu)
     for k in range(n_warm):
         feed(pipe, k)
+    return profile_window(torch, lambda: [feed(pipe, k) for k in range(
+        n_warm, n_warm + n_prof)], n_prof)
+
+
+def profile_chunk(torch, cfg, scans, dev, C=CHUNK_C):
+    """The same for one steady chunk of C scans through process_chunk with
+    collect_stats=False (after one chunk through the same new pipeline)."""
+    from lego_loam_tpu_torch.models import pipeline as pl
+
+    pipe = pl.LegoLoamPipeline(cfg, dev, collect_stats=False)
+    chunks = host_chunks(scans[:2 * C], C)
+    pipe.process_chunk(*chunks[0])
+    return profile_window(torch, lambda: pipe.process_chunk(*chunks[1]), C)
+
+
+def profile_window(torch, fn, n_prof):
+    """fn() (n_prof scans' work) under torch.profiler, synchronised: device
+    events a scan, device busy ms a scan (the union of their intervals),
+    host ms a scan under the profiler, and the device's idle share of that
+    window."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for k in range(n_warm, n_warm + n_prof):
-            feed(pipe, k)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
@@ -947,6 +1019,280 @@ def profile_scans(torch, cfg, scans, dev, n_warm=3, n_prof=6, stamps=None,
             "device_idle_share": 1.0 - busy / wall_us}
 
 
+def capture_eig6_inputs(torch, cfg, scans, dev):
+    """The (H, thresh) of every degeneracy projection of the slice's first
+    scans through a pipeline on the card: 5 odometry rounds a scan
+    (odom_degen_eig_thresh) and 1 a mapping solve (map_degen_eig_thresh)."""
+    from lego_loam_tpu_torch.models import odometry as odo
+    from lego_loam_tpu_torch.models import pipeline as pl
+
+    kept = []
+    orig = odo.degeneracy_projection
+
+    def keep(H, thresh):
+        kept.append((H.detach().clone(), float(thresh)))
+        return orig(H, thresh)
+
+    odo.degeneracy_projection = keep
+    try:
+        pipe = pl.LegoLoamPipeline(cfg, dev)
+        for xyz, valid, ring in device_scans(torch, cfg, scans, dev):
+            pipe.process_scan(xyz, valid, ring)
+    finally:
+        odo.degeneracy_projection = orig
+    return kept
+
+
+def e1_bound(sweeps: int):
+    """E1's bound for one matrix: H read (144 B), P, lam and the sweep
+    count written (172 B); float64 operations: the symmetrisation (72),
+    `sweeps` Jacobi sweeps of 15 rotations, and P (36 entries of 6 terms,
+    3 operations each)."""
+    ops = 72 + sweeps * (15 * E1_ROTATION_OPS + E1_SWEEP_OPS) + 36 * 6 * 3
+    return bound(36 * 4 + 36 * 4 + 6 * 4 + 4, ops, FP64_OPS_PER_S)
+
+
+def check_e1(torch, cfg, captured, dev):
+    """E1 against its plain version on the card: the captured H of real
+    odometry rounds and mapping solves and the seeded spectra of
+    tests/torch_courses.eig6_spectra, batched by threshold.  P within
+    E1_TOL, eigenvalues within E1_TOL of |H|, equal keep masks; a mask may
+    differ only where an eigenvalue lies within E1_TOL |H| of the threshold
+    (float32 eigh against float64 Jacobi), which is counted and printed.
+    Timed on one captured odometry H, the main path's call."""
+    from lego_loam_tpu_torch.ops import eig6
+    from tests.torch_courses import eig6_spectra
+
+    groups = {}
+    for H, th in captured:
+        groups.setdefault(th, []).append(H)
+    n_captured = {th: len(v) for th, v in groups.items()}
+    for th in (cfg.odom_degen_eig_thresh, cfg.map_degen_eig_thresh):
+        groups.setdefault(th, []).extend(
+            torch.as_tensor(h, device=dev) for _, h in eig6_spectra(th))
+    worst_p = worst_lam = 0.0
+    near = sweeps_max = 0
+    for th, items in groups.items():
+        H = torch.stack(items).contiguous()
+        P, lam, sw = eig6.eig6(H, th)
+        P_ref, lam_ref = eig6.degeneracy_projection_plain(H, th)
+        scale = H.abs().amax(dim=(1, 2)).clamp(min=1.0)
+        d_p = (P - P_ref).abs().amax(dim=(1, 2))
+        d_lam = (lam - lam_ref).abs().amax(dim=1) / scale
+        same_mask = ((lam >= th) == (lam_ref >= th)).all(dim=1)
+        at_thresh = ((lam_ref - th).abs() <= E1_TOL * scale[:, None]).any(dim=1)
+        bad = (d_lam > E1_TOL) | (~same_mask & ~at_thresh) | (same_mask & (d_p > E1_TOL))
+        if bool(bad.any()):
+            i = int(bad.nonzero()[0, 0])
+            fail(f"E1 eig6 differs from its plain version at threshold {th} on "
+                 f"matrix {i}: |dP| {float(d_p[i]):.3g}, |dlam|/|H| "
+                 f"{float(d_lam[i]):.3g}, keep masks equal {bool(same_mask[i])}")
+        near += int((~same_mask).sum())
+        worst_p = max(worst_p, float(d_p[same_mask].max()))
+        worst_lam = max(worst_lam, float(d_lam.max()))
+        sweeps_max = max(sweeps_max, int(sw.max()))
+
+    # timed on the first odometry round of the third scan (the first scan
+    # has no references yet: its rounds see H = 0)
+    H1, th1 = [c for c in captured if c[1] == cfg.odom_degen_eig_thresh][10]
+    kernel = lambda: eig6.degeneracy_projection(H1, th1)  # noqa: E731
+    plain = lambda: eig6.degeneracy_projection_plain(H1, th1)  # noqa: E731
+
+    def library():
+        lam, V = torch.linalg.eigh(H1)
+        return (V * (lam >= th1).to(H1.dtype)) @ V.T
+
+    sweeps1 = int(eig6.eig6(H1[None], th1)[2][0])
+    b_ms, b_by = e1_bound(sweeps1)
+    out = {
+        "name": "eig6", "route": "cuda", "source": "lego_loam_tpu_torch/csrc/eig6.cu",
+        "replaces": "lego_loam_tpu/models/odometry.py:340",
+        "note": "no TPU kernel: _degeneracy_projection's jnp.linalg.eigh, which "
+                "torch.linalg.eigh would run with a host sync",
+        "max_abs_err": max(worst_p, worst_lam),
+        "ms": cuda_ms(torch, kernel, 200), "call_ms": call_ms(torch, kernel, 200),
+        "plain_ms": cuda_ms(torch, plain, 50), "library_ms": cuda_ms(torch, library, 50),
+        "library_call_ms": call_ms(torch, library, 50),
+        "bound_ms": b_ms, "bound_by": b_by, "sweeps": sweeps1,
+        "matrices": {str(th): len(v) for th, v in groups.items()},
+        "captured": {str(th): n for th, n in n_captured.items()},
+        "near_threshold_flips": near, "max_sweeps": sweeps_max,
+    }
+    print(f"  E1 eig6: {sum(map(len, groups.values()))} matrices "
+          f"({out['captured']} captured from odometry rounds / mapping solves "
+          f"by threshold, the rest seeded spectra): max|dP| {worst_p:.3g}, "
+          f"max|dlam|/|H| {worst_lam:.3g}, keep masks equal except "
+          f"{near} at the threshold, at most {sweeps_max} sweeps; one 6x6 "
+          f"({sweeps1} sweeps): kernel {out['ms']:.4f} ms (call "
+          f"{out['call_ms']:.4f} ms), plain {out['plain_ms']:.4f} ms, "
+          f"torch.linalg.eigh + projection {out['library_ms']:.4f} ms (call "
+          f"{out['library_call_ms']:.4f} ms, a host sync each), bound "
+          f"{b_ms:.7f} ms ({b_by}), {100 * b_ms / out['ms']:.3f} % of it")
+    return out
+
+
+def host_chunks(scans, C):
+    """(xyz, valid, ring) host arrays of C scans each (the last may be
+    shorter), as a replay hands them to process_chunk."""
+    return [tuple(np.stack([s[i] for s in scans[k:k + C]]) for i in range(3))
+            for k in range(0, len(scans), C)]
+
+
+def run_chunks(torch, cfg, scans, dev, C, collect_stats=True, every=10):
+    """The course through process_chunk in chunks of C host arrays: one
+    chunk through a throwaway pipeline, then the course through a new one
+    with the kernel counts set to 0 just before, each chunk under the
+    sync-debug counting.  Returns the pipeline, the chunk results, the host
+    syncs of each chunk and by call site, the launches and scans/s (the
+    whole course, synchronised at its end)."""
+    from lego_loam_tpu_torch.models import pipeline as pl
+
+    chunks = host_chunks(scans, C)
+    warm = pl.LegoLoamPipeline(cfg, dev, loop_check_every=every,
+                               collect_stats=collect_stats)
+    warm.process_chunk(*chunks[0])
+    del warm
+    torch.cuda.synchronize()
+    pipe = pl.LegoLoamPipeline(cfg, dev, loop_check_every=every,
+                               collect_stats=collect_stats)
+    wrappers = kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    results, syncs, sites = [], [], Counter()
+    t = time.perf_counter()
+    for ch in chunks:
+        res, hits = catch_syncs(torch, lambda: pipe.process_chunk(*ch))
+        results.append(res)
+        syncs.append(len(hits))
+        sites.update(hits)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t
+    return {"pipe": pipe, "results": results, "syncs_per_chunk": syncs,
+            "sync_sites": dict(sites), "scans_per_s": len(scans) / t,
+            "launches": {w.__name__: w.launches for w in wrappers}}
+
+
+def chunk_gaps(torch, results, rows):
+    """Largest gaps of the stacked chunk results to per-scan FrameResults:
+    fused and mapped poses (m, deg), and the scans whose did_map or stats
+    differ."""
+    from lego_loam_tpu_torch.models.pipeline import STAT_NAMES
+
+    def cat(f):
+        return torch.cat([f(r) for r in results])
+
+    def stack(poses):
+        poses = list(poses)
+        return torch.stack([p.R for p in poses]), torch.stack([p.t for p in poses])
+
+    did_map = cat(lambda r: r.did_map).tolist()
+    stats = cat(lambda r: r.stats).tolist()
+    ref_map = [r.mapped_pose is not None for r in rows]
+    mk = [k for k, m in enumerate(ref_map) if m]
+    fused = pose_gaps(cat(lambda r: r.fused_poses.R), cat(lambda r: r.fused_poses.t),
+                      *stack(r.fused_pose for r in rows))
+    mapped = pose_gaps(cat(lambda r: r.mapped_poses.R)[mk],
+                       cat(lambda r: r.mapped_poses.t)[mk],
+                       *stack(rows[k].mapped_pose for k in mk))
+    bad = [k for k, r in enumerate(rows)
+           if did_map[k] != ref_map[k] or (r.stats and stats[k] != [
+               r.stats[n] for n in STAT_NAMES])]
+    return {"fused_m": fused[0], "fused_deg": fused[1], "mapped_m": mapped[0],
+            "mapped_deg": mapped[1], "mapped_scans": len(mk)}, bad
+
+
+def check_export(torch, pipe, cfg, scan, n_valid, dev):
+    """The map export of a chunked run: export_maps to a temporary
+    directory, every file read back with load_pcd equal to global_map /
+    keyframe_poses; dump_keyframe and dump_stages on the card (dump_stages'
+    projected count must equal the scan's n_valid_px); the native reader
+    built from this checkout and in use, its pad_scan_native equal to
+    kitti.pad_scan on a real scan, and read_bin of that scan written as a
+    KITTI .bin byte-equal to it."""
+    import tempfile
+
+    from lego_loam_tpu_torch.io import kitti, pcd
+    from lego_loam_tpu_torch.native import fast_io
+    from lego_loam_tpu_torch.utils import debug
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        written = pcd.export_maps(pipe, d)
+        out["export_s"] = time.perf_counter() - t0
+        maps = {name: pipe.global_map(name) for name in ("corner", "surf", "outlier")}
+        expect = {"cornerMap.pcd": maps["corner"], "surfaceMap.pcd": maps["surf"],
+                  "trajectory.pcd": pipe.keyframe_poses(),
+                  "finalCloud.pcd": np.concatenate([maps["corner"], maps["surf"],
+                                                    maps["outlier"]])}
+        for name, ref in expect.items():
+            got = pcd.load_pcd(os.path.join(d, name))
+            if got.shape != ref.shape or got.tobytes() != ref.astype(np.float32).tobytes():
+                fail(f"{name} read back differs from what it was written from")
+        out["points"] = {os.path.basename(p): n for p, n in written.items()}
+        out["dump_keyframe"] = debug.dump_keyframe(pipe, int(pipe.mstate.n_kf) - 1, d)
+        out["dump_stages"] = debug.dump_stages(cfg, *scan, out_dir=d, prefix="s0_",
+                                               device=dev)
+        if out["dump_stages"]["projected"] != n_valid:
+            fail(f"dump_stages projected {out['dump_stages']['projected']} points, "
+                 f"the pipeline's stats {n_valid}")
+        if not fast_io.available():
+            fail(f"the native reader did not build: {fast_io.build_info}")
+        lib = fast_io.build_info["path"]
+        if os.path.dirname(lib) != str(fast_io.BUILD_DIR):
+            fail(f"the native reader in use is {lib}, not this checkout's build")
+        xyz, valid, ring = scan
+        pts = np.concatenate([xyz[valid], ring[valid, None].astype(np.float32)], 1)
+        pts[::97, 1] = np.nan           # no-return beams, as sensors report them
+        pts[::89, 0] = np.inf
+        path = os.path.join(d, "000000.bin")
+        pts.tofile(path)
+        if kitti.read_bin(path).tobytes() != pts.tobytes():
+            fail("kitti.read_bin through the native reader differs from the file")
+        a_xyz, a_valid = kitti.pad_scan(pts, cfg)
+        b_xyz, b_valid = fast_io.pad_scan_native(pts, a_xyz.shape[0])
+        if a_xyz.tobytes() != b_xyz.tobytes() or not np.array_equal(a_valid, b_valid):
+            fail("pad_scan_native differs from kitti.pad_scan on a real scan")
+        out["native"] = {"library": os.path.relpath(lib), "points": int(len(pts)),
+                         "invalid": int((~b_valid[:len(pts)]).sum())}
+    return out
+
+
+def card_against_cpu_chunks(torch, cfg, scans, dev, C=C6_CHUNK_C):
+    """C6's chunk arm: the scans through process_chunk on the card (chunks of
+    C) and process_scan on the CPU: every fused pose and, after each chunk,
+    every keyframe pose within C6_POS_M / C6_ROT_DEG, stats and did_map
+    equal.  Returns the largest gaps and the list of faults."""
+    from lego_loam_tpu_torch.models import pipeline as pl
+
+    card = pl.LegoLoamPipeline(cfg, dev)
+    host = pl.LegoLoamPipeline(cfg, "cpu")
+    faults, rows = [], []
+    gap = {"keyframe_m": 0.0, "keyframe_deg": 0.0}
+    results = []
+    for k0, ch in zip(range(0, len(scans), C), host_chunks(scans, C)):
+        results.append(card.process_chunk(*ch))
+        rows.extend(host.process_scan(*s) for s in scans[k0:k0 + C])
+        n = int(host.mstate.n_kf)
+        if int(card.mstate.n_kf) != n:
+            faults.append(f"after scan {k0 + C - 1}: {int(card.mstate.n_kf)} "
+                          f"keyframes != {n}")
+            continue
+        m, deg = pose_gaps(card.mstate.kf_R[:n], card.mstate.kf_t[:n],
+                           host.mstate.kf_R[:n], host.mstate.kf_t[:n])
+        gap["keyframe_m"] = max(gap["keyframe_m"], m)
+        gap["keyframe_deg"] = max(gap["keyframe_deg"], deg)
+    g, bad = chunk_gaps(torch, results, rows)
+    gap.update(g)
+    if bad:
+        faults.append(f"scans {bad}: did_map or stats differ")
+    for what, lim in (("fused_m", C6_POS_M), ("keyframe_m", C6_POS_M),
+                      ("fused_deg", C6_ROT_DEG), ("keyframe_deg", C6_ROT_DEG)):
+        if gap[what] > lim:
+            faults.append(f"largest {what} gap {gap[what]:.5g} over {lim}")
+    return {"scans": len(scans), "chunk": C, "gaps": gap}, faults
+
+
 def main() -> None:
     import torch
 
@@ -955,12 +1301,13 @@ def main() -> None:
     from lego_loam_tpu_torch import config_for
     from lego_loam_tpu_torch.io import synthetic as syn
     from lego_loam_tpu_torch.kernels import build as kb
+    from lego_loam_tpu_torch.models import pipeline as pl
     from lego_loam_tpu_torch.ops.projection import project_scan
     from tests.test_torch_sensor_rows import mid_row
     from tests.torch_courses import (LOOP, LOOP_CHECK_EVERY, LOOP_COURSE_KNOBS,
-                                     LOOP_FINAL_BOUND, LOOP_SHORT_OUT, SMALL,
-                                     fast_yaw_course, fast_yaw_imu, loop_course,
-                                     slice_course)
+                                     LOOP_FINAL_BOUND, LOOP_SCAN_PERIOD,
+                                     LOOP_SHORT_OUT, SMALL, fast_yaw_course,
+                                     fast_yaw_imu, loop_course, slice_course)
 
     dev = torch.device("cuda:0")
     card = card_line()
@@ -1004,8 +1351,13 @@ def main() -> None:
               f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.2f} % of "
               f"bound ({note})")
         results.append(r)
+    # E1 on the H of the slice's first 7 scans (35 odometry rounds, 3
+    # mapping solves) and on seeded spectra
+    results.append(check_e1(torch, cfg, capture_eig6_inputs(torch, cfg, scans[:7], dev),
+                            dev))
 
     sl = run_slice(torch, cfg, scans, poses, dev)
+    rows = sl.pop("_rows")
     print(f"slice: {N_SCANS} scans, ATE {sl['ate_m']:.4f} m (max "
           f"{sl['max_err_m']:.4f} m), {sl['n_kf']} keyframes")
     print(f"slice: {sl['scans_per_s']:.2f} scans/s over {sl['window_scans']} "
@@ -1015,14 +1367,89 @@ def main() -> None:
     print(f"slice: host syncs per scan {sl['host_syncs_per_scan']}, by "
           f"call site over those scans: {sl['sync_sites']}")
     print(f"slice: kernel launches {sl['launches']}")
-    for r, key in zip(results, ("propagate_labels", "label_features", "knn")):
+    for r, key in zip(results, ("propagate_labels", "label_features", "knn", "eig6")):
         r["launches"] = sl["launches"][key]
         if r["launches"] == 0:
             fail(f"kernel {r['name']} was not launched on the main path")
     if not np.isfinite(sl["ate_m"]) or sl["ate_m"] >= ATE_BOUND:
         fail(f"slice ATE {sl['ate_m']:.4f} m is not under {ATE_BOUND} m")
+    # E1 took cuSOLVER's info read-back off the path: the one host copy of
+    # process_scan is the only sync left, on a plain and on a mapping scan
+    if sl["host_syncs_per_scan"] != [1] * SYNC_SCANS:
+        fail(f"host syncs per scan {sl['host_syncs_per_scan']}, not 1 each "
+             f"({sl['sync_sites']})")
+
+    # chunked replay at full width: the slice course through process_chunk,
+    # with and without collect_stats, held to the per-scan run above; a
+    # second per-scan run first, whose gap to the first is the card's own
+    # run-to-run variation, the yardstick of the chunk's gaps
+    again = pl.LegoLoamPipeline(cfg, dev)
+    again_rows = [again.process_scan(*s) for s in device_scans(torch, cfg, scans, dev)]
+    chunk = {"process_scan_repeat": dict(zip(("fused_m", "fused_deg"), pose_gaps(
+        torch.stack([r.fused_pose.R for r in again_rows]),
+        torch.stack([r.fused_pose.t for r in again_rows]),
+        torch.stack([r.fused_pose.R for r in rows]),
+        torch.stack([r.fused_pose.t for r in rows]))))}
+    print(f"slice again: a second process_scan run of the same scans lands "
+          f"{chunk['process_scan_repeat']['fused_m'] * 1e3:.4f} mm / "
+          f"{chunk['process_scan_repeat']['fused_deg']:.5f} deg from the first")
+    del again, again_rows
+    for tag, stats in (("stats", True), ("no_stats", False)):
+        ch = run_chunks(torch, cfg, scans, dev, CHUNK_C, stats)
+        pipe_c = ch.pop("pipe")
+        res_c = ch.pop("results")
+        gaps, bad = chunk_gaps(torch, res_c, rows)
+        traj = pipe_c.trajectory_numpy()
+        R0, t0 = poses[0]
+        ch.update(gaps=gaps, n_kf=int(pipe_c.mstate.n_kf), ate_m=float(np.sqrt(np.mean([
+            np.sum((R0 @ p + t0 - t) ** 2) for p, (_, t) in zip(traj, poses)]))))
+        chunk[tag] = ch
+        print(f"chunk ({tag}): {N_SCANS} scans in chunks of {CHUNK_C}, "
+              f"{ch['scans_per_s']:.2f} scans/s (process_scan {sl['scans_per_s']:.2f}); "
+              f"against process_scan fused {gaps['fused_m'] * 1e3:.4f} mm / "
+              f"{gaps['fused_deg']:.5f} deg, mapped ({gaps['mapped_scans']} solves) "
+              f"{gaps['mapped_m'] * 1e3:.4f} mm / {gaps['mapped_deg']:.5f} deg; "
+              f"ATE {ch['ate_m']:.4f} m, {ch['n_kf']} keyframes; host syncs per "
+              f"chunk {ch['syncs_per_chunk']} by site {ch['sync_sites']}; kernel "
+              f"launches {ch['launches']}")
+        if bad:
+            fail(f"chunk ({tag}): did_map or stats differ from process_scan on scans {bad}")
+        if gaps["fused_m"] > CHUNK_POS_M or gaps["mapped_m"] > CHUNK_POS_M or \
+                gaps["fused_deg"] > CHUNK_ROT_DEG or gaps["mapped_deg"] > CHUNK_ROT_DEG:
+            fail(f"chunk ({tag}) poses differ from process_scan by {gaps}")
+        if ch["n_kf"] != sl["n_kf"]:
+            fail(f"chunk ({tag}): {ch['n_kf']} keyframes against {sl['n_kf']}")
+        if not ch["ate_m"] < ATE_BOUND:
+            fail(f"chunk ({tag}) ATE {ch['ate_m']:.4f} m is not under {ATE_BOUND} m")
+        for key, count in ch["launches"].items():
+            if count == 0:
+                fail(f"kernel {key} was not launched inside process_chunk")
+        want = 1 if stats else 0
+        if ch["syncs_per_chunk"] != [want] * len(ch["syncs_per_chunk"]):
+            fail(f"chunk ({tag}): host syncs per chunk {ch['syncs_per_chunk']}, "
+                 f"not {want}")
+        if stats:
+            export = check_export(torch, pipe_c, cfg, scans[0], rows[0].stats["n_valid_px"],
+                                  dev)
+            print(f"export: {export['points']} points written and read back "
+                  f"equal in {export['export_s']:.2f} s; dump_keyframe "
+                  f"{export['dump_keyframe']}; dump_stages on the card "
+                  f"{export['dump_stages']}; native reader {export['native']}")
+        del pipe_c, res_c
+    for r, key in zip(results, ("propagate_labels", "label_features", "knn", "eig6")):
+        r["launches_in_chunks"] = chunk["stats"]["launches"][key]
+    # collect_stats=False on process_scan: no host sync at all
+    nopipe = pl.LegoLoamPipeline(cfg, dev, collect_stats=False)
+    quiet = [len(catch_syncs(torch, lambda s=s: nopipe.process_scan(*s))[1])
+             for s in device_scans(torch, cfg, scans[:SYNC_SCANS], dev)]
+    print(f"slice, collect_stats=False: host syncs per scan {quiet}")
+    if any(quiet):
+        fail(f"process_scan with collect_stats=False synced: {quiet}")
+    chunk["process_scan_no_stats_syncs"] = quiet
+    del nopipe
 
     hl = run_slice(torch, hcfg, hscans, hposes, dev, HDL_WARM, HDL_SYNC)
+    hl.pop("_rows")
     print(f"hdl64e: {HDL_SCANS} scans ({hcfg.sensor.n_scan} x "
           f"{hcfg.sensor.horizon_scan}, no ring channel), ATE {hl['ate_m']:.4f} "
           f"m (max {hl['max_err_m']:.4f} m), {hl['n_kf']} keyframes")
@@ -1084,6 +1511,40 @@ def main() -> None:
         v["err"] for v in knn_row["loop_shapes"].values()])
     knn_row["launches_per_loop_check"] = max(lp["knn_launches_per_check"])
 
+    # the loop course through process_chunk: the course's stamps, 0.55 s
+    # apart, become the sensor's scan period (without an IMU and with
+    # deskew=False the period enters nothing but the stamps)
+    lccfg = lcfg.replace(sensor=dataclasses.replace(lcfg.sensor,
+                                                    scan_period=LOOP_SCAN_PERIOD))
+    lch = run_chunks(torch, lccfg, lscans, dev, LOOP_CHUNK_C, True, LOOP_CHECK_EVERY)
+    lpipe, lres = lch.pop("pipe"), lch.pop("results")
+    lch["loop_closed"] = torch.cat([r.loop_closed for r in lres]).tolist()
+    lch["final_err_m"] = float(np.linalg.norm(
+        lpipe.trajectory[-1] - (positions[-1] - positions[0])))
+    lch["n_loops"] = int(lpipe.mstate.n_loops)
+    # a chunk syncs once for its host copy and at most once more for each
+    # loop check whose flag a later solve of the chunk must read
+    n = len(lscans)
+    checks = [sum(1 for f in range(k, min(k + LOOP_CHUNK_C, n))
+                  if f % LOOP_CHECK_EVERY == 0) for k in range(0, n, LOOP_CHUNK_C)]
+    print(f"loop chunks: {n} scans in chunks of {LOOP_CHUNK_C}, loops closed at "
+          f"scans {[k for k, c in enumerate(lch['loop_closed']) if c]} (process_scan: "
+          f"{[k for k, c in enumerate(lp['loop_closed']) if c]}), {lch['n_loops']} "
+          f"loops, final pose {lch['final_err_m']:.4f} m from the truth, "
+          f"{lch['scans_per_s']:.2f} scans/s; host syncs per chunk "
+          f"{lch['syncs_per_chunk']} (loop checks per chunk {checks}) by site "
+          f"{lch['sync_sites']}; kernel launches {lch['launches']}")
+    if lch["loop_closed"] != [bool(c) for c in lp["loop_closed"]]:
+        fail("the loop course through process_chunk closed other loops than "
+             "through process_scan")
+    if not lch["final_err_m"] < LOOP_FINAL_BOUND:
+        fail(f"loop chunks: final pose {lch['final_err_m']:.4f} m from the truth")
+    if any(sy > 1 + c for sy, c in zip(lch["syncs_per_chunk"], checks)):
+        fail(f"loop chunks: host syncs per chunk {lch['syncs_per_chunk']} over 1 + "
+             f"the loop checks {checks}")
+    chunk["loop"] = lch
+    del lpipe, lres
+
     # the IMU path at full width: the default PipelineConfig (deskew=True)
     icfg = config_for("vlp16")
     t0 = time.perf_counter()
@@ -1108,6 +1569,7 @@ def main() -> None:
           + f"; the IMU with de-skew off {arms['imu_off']['ate_aligned_m']:.4f} m "
           f"({arms['imu_off']['ate_m']:.4f})")
     for tag, a in arms.items():
+        a.pop("_rows")
         print(f"imu: {tag} arm {a['scans_per_s']:.2f} scans/s over "
               f"{a['window_scans']} scans; frontend_step {a['frontend_ms']:.2f} "
               f"ms, mapping_step {a['mapping_ms']:.2f} ms; peak memory "
@@ -1163,6 +1625,18 @@ def main() -> None:
                  + "; ".join(faults))
     if not any(c6["loop"]["loop_closed"]):
         fail("no loop closed on the card-against-CPU loop course")
+    c6["chunk"], faults = card_against_cpu_chunks(torch, config_for("vlp16", **SMALL),
+                                                  scans6, dev)
+    g = c6["chunk"]["gaps"]
+    print(f"card vs cpu, chunk arm ({c6['chunk']['scans']} scans in chunks of "
+          f"{C6_CHUNK_C} on the card, process_scan on the CPU): largest gaps fused "
+          f"{g['fused_m'] * 1e3:.3f} mm / {g['fused_deg']:.4f} deg, mapped "
+          f"{g['mapped_m'] * 1e3:.3f} mm / {g['mapped_deg']:.4f} deg, keyframes "
+          f"{g['keyframe_m'] * 1e3:.3f} mm / {g['keyframe_deg']:.4f} deg (bound "
+          f"{C6_POS_M * 1e3:.0f} mm / {C6_ROT_DEG} deg); stats and did_map "
+          + ("equal" if not faults else "checked"))
+    if faults:
+        fail("the card's chunks differ from the CPU run: " + "; ".join(faults))
 
     # profiler phases last: they must not slow the timed ones
     k2_device_kernels(torch, results[1])
@@ -1172,6 +1646,12 @@ def main() -> None:
           f"busy {pr['device_busy_ms_per_scan']:.2f} ms of "
           f"{pr['host_ms_per_scan']:.2f} ms a scan (host clock, under the "
           f"profiler): device idle {100 * pr['device_idle_share']:.1f} %")
+    chunk["stats"]["profile"] = pc = profile_chunk(torch, cfg, scans, dev)
+    print(f"chunk: torch.profiler over one steady chunk of {pc['scans']} scans "
+          f"(collect_stats=False): {pc['device_events_per_scan']:.0f} device events "
+          f"a scan, device busy {pc['device_busy_ms_per_scan']:.2f} ms of "
+          f"{pc['host_ms_per_scan']:.2f} ms a scan: device idle "
+          f"{100 * pc['device_idle_share']:.1f} %")
     arms["on"]["profile"] = pon = profile_scans(torch, icfg, bscans, dev,
                                                 stamps=bstamps)
     arms["imu"]["profile"] = pimu = profile_scans(torch, icfg, bscans, dev,
@@ -1187,14 +1667,19 @@ def main() -> None:
           f"device events a scan")
 
     print(json.dumps({"slice": sl, "hdl64e": hl, "loop": lp, "imu": arms,
-                      "card_vs_cpu": c6,
+                      "chunk": chunk, "export": export, "card_vs_cpu": c6,
                       "k1_presets": results[0]["presets"],
-                      "k2_hdl64e": results[1]["hdl64e"], "card": card}))
+                      "k2_hdl64e": results[1]["hdl64e"],
+                      "e1": {k: results[3][k] for k in (
+                          "call_ms", "library_call_ms", "sweeps", "matrices",
+                          "captured", "near_threshold_flips", "max_sweeps")},
+                      "card": card}))
     print(json.dumps({"kernels": [
         {key: r[key] for key in ("name", "route", "source", "replaces",
-                                 "launches", "max_abs_err", "ms", "plain_ms",
-                                 "bound_ms", "bound_by", "library_ms",
-                                 "launches_per_loop_check", "loop_shapes")
+                                 "launches", "max_abs_err", "ms", "call_ms",
+                                 "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                 "launches_per_loop_check", "loop_shapes",
+                                 "launches_in_chunks", "note")
          if key in r}
         for r in results]}))
     print(json.dumps({"ok": True, "device": {

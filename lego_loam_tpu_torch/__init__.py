@@ -3,8 +3,9 @@
 A port of ``lego_loam_tpu`` (JAX/XLA/Pallas) that keeps its module layout
 and names.  Plain tensor code is PyTorch; the three Pallas TPU kernels of
 the scan-to-map main path are hand-written CUDA C++ for Hopper
-(``csrc/``), built with nvcc at first use and bound with ctypes
-(``kernels/``).  Every kernel wrapper runs its plain PyTorch version for a
+(``csrc/``), and so is the 6x6 eigen-solve that keeps the host from
+waiting on cuSOLVER (``csrc/eig6.cu``), all built with nvcc at first use
+and bound with ctypes (``kernels/``).  Every kernel wrapper runs its plain PyTorch version for a
 CPU tensor and its kernel for a CUDA tensor.
 
 The package imports torch and numpy only -- never jax, never

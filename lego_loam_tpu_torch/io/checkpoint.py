@@ -54,14 +54,13 @@ def _unflatten(template, leaves):
 
 
 def save_checkpoint(pipeline, path: str) -> None:
+    pipeline.sync_map_stale()     # a pending loop flag settles map_stale
     tree = _tree(pipeline)
     leaves = [leaf for k in _KEYS for leaf in _leaves(tree[k])]
     meta = {"frame": pipeline.frame, "imu_used": pipeline.imu_used,
             "n_leaves": len(leaves), "version": 1}
     arrays = {f"leaf_{i}": x for i, x in enumerate(leaves)}
-    arrays["trajectory"] = (
-        np.stack(pipeline.trajectory) if pipeline.trajectory
-        else np.zeros((0, 3), np.float32))
+    arrays["trajectory"] = pipeline.trajectory_numpy()
     arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
     np.savez_compressed(path, **arrays)
 

@@ -4,8 +4,9 @@
 Velodyne .bin scans padded to the fixed pipeline shape (pad_scan, which
 the bag replay uses too), ground-truth poses transformed from the
 left-camera frame into the velodyne frame via the calibration, and
-sequence iteration.  read_bin reads with NumPy: the native reader
-(native/fast_io) is not ported yet.
+sequence iteration.  read_bin reads through the native reader
+(lego_loam_tpu_torch/native/fast_io, built from native/fast_io.cpp at
+first use) and with NumPy where it cannot be built.
 """
 
 from __future__ import annotations
@@ -15,12 +16,14 @@ import os
 import numpy as np
 
 from lego_loam_tpu_torch.config import PipelineConfig
+from lego_loam_tpu_torch.native import fast_io
 
 
 def read_bin(path: str) -> np.ndarray:
-    """(N, 4) float32 x, y, z, reflectance.  A file whose size is not a
-    multiple of 16 bytes raises ValueError (the JAX package's native reader
-    drops the partial point instead)."""
+    """(N, 4) float32 x, y, z, reflectance.  The native reader drops a
+    partial last record; the NumPy path raises ValueError on one."""
+    if fast_io.available():
+        return fast_io.read_kitti_bin(path)
     return np.fromfile(path, dtype=np.float32).reshape(-1, 4)
 
 

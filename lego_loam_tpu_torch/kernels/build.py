@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels (``lego_loam_tpu_torch/csrc``).
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, at first use, into
-``<repo>/build/kernels/`` (gitignored).  The file name carries a hash of the
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` (one
+process a source, in parallel) and linked into ONE shared library with a
+plain C interface, at first use, into ``<repo>/build/kernels/``
+(gitignored).  The file name carries a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
 the existing library.  The library is loaded with ctypes; every pointer and
 the CUDA stream cross as ``c_void_p`` (a bare Python int would be cut to 32
@@ -41,6 +42,8 @@ _SIGNATURES = {
     "lego_label_features": [_P] * 7 + [_I] * 2 + [_P] * 2,
     # query, ref, ref_valid, Q, N, k, S, scratch, idx, d2, stream
     "lego_knn": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # H, thresh, P, lam, sweeps, B, stream
+    "lego_eig6": [_P, ctypes.c_float, _P, _P, _P, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -62,7 +65,8 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into one shared library unless an identical build
-    exists; returns its path.  Fills ``build_info`` (seconds, log)."""
+    exists; returns its path.  One nvcc process a source, all started
+    together, then one link.  Fills ``build_info`` (seconds, log)."""
     srcs = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
@@ -73,16 +77,31 @@ def build() -> Path:
         build_info.update(path=str(out), seconds=0.0, log="(cached)")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}_{tag}.o" for s in srcs]
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    tmp.replace(out)
-    build_info.update(path=str(out), seconds=seconds,
-                      log=proc.stdout + proc.stderr)
+    procs = [subprocess.Popen([nvcc, *compile_flags, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        for s, p, log in zip(srcs, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s.name} ({p.returncode}):\n{log}")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        tmp.replace(out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
+                      log="".join(logs) + link.stdout + link.stderr)
     return out
 
 

@@ -13,7 +13,8 @@ pose-graph solve run on every check, and the outcome is applied with
 ``found`` or ``accept``.  The one field the JAX package also updates on the
 device, ``map_stale``, is a host value in the port (models/mapping.py): the
 caller sets it from ``LoopResult.closed`` once that is on the host
-(models/pipeline.py reads it in the host copy a scan already makes).
+(models/pipeline.py reads it in the host copy of a scan, or, where no copy
+came between the check and the next solve, just before that solve).
 """
 
 from __future__ import annotations

@@ -12,8 +12,11 @@ Where the JAX package branches on device values under jit, the port keeps
 the decision on the host without a sync:
   * the early-exit while_loop is a fixed loop of masked steps (once done,
     a step leaves the pose unchanged, so the result is identical);
-  * the map-refresh cond reads map_age / map_stale, which change only by
-    host-known rules and are therefore host values in MappingState;
+  * the map-refresh cond reads map_age / map_stale, host values in
+    MappingState: map_age changes only by host-known rules, and map_stale
+    is set by compaction and, after an accepted loop, by the pipeline,
+    which reads the loop flag at the latest when the next solve comes
+    (models/pipeline.py; the JAX package sets it on the device);
   * the pool-compaction cond moves to the pipeline, which keeps a host
     upper bound on n_kf (at most one insert per solve) and reads the device
     count only when that bound reaches max_keyframes - 1.
@@ -76,9 +79,9 @@ class MappingState(NamedTuple):
     map_surf_valid: torch.Tensor
     map_age: int                    # host: solves since the last refresh
     map_stale: bool                 # host: force a refresh at the next solve
-                                    # (set by compaction and, from the host
-                                    # copy of LoopResult.closed, by the
-                                    # pipeline after an accepted loop)
+                                    # (set by compaction and, from
+                                    # LoopResult.closed read on the host, by
+                                    # the pipeline after an accepted loop)
 
 
 def init_state(cfg: PipelineConfig, device) -> MappingState:

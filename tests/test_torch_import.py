@@ -31,6 +31,10 @@ print(" ".join(names))
 # the IMU slice's modules, among every module the walk imports
 IMU_SLICE = ("models.imu", "io.checkpoint", "io.kitti", "io.rosbag",
              "io.synthetic", "utils.math3d", "utils.convert")
+# the chunked-replay slice's: E1, the PCD export, the native reader, the
+# debug dumps and the pipeline that drives them
+CHUNK_SLICE = ("ops.eig6", "io.pcd", "native", "native.fast_io", "utils.debug",
+               "models.pipeline")
 
 
 def test_port_imports_without_jax():
@@ -38,8 +42,8 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 24     # every module of the port
-    assert {f"lego_loam_tpu_torch.{m}" for m in IMU_SLICE} <= names
+    assert len(names) >= 29     # every module of the port
+    assert {f"lego_loam_tpu_torch.{m}" for m in IMU_SLICE + CHUNK_SLICE} <= names
 
 
 def test_shared_test_courses_import_without_jax():

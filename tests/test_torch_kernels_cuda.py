@@ -1,4 +1,4 @@
-"""The three CUDA kernels against their plain PyTorch versions, on the card.
+"""The four CUDA kernels against their plain PyTorch versions, on the card.
 
 Skipped without a CUDA device (the `cuda` marker; decided inside the
 fixture).  Run on a machine with an H100:
@@ -20,8 +20,11 @@ to rtol 1e-4 / atol 1e-3 on distances with every returned index a valid
 point at its distance (tests/test_knn_pallas.py's scheme), on shapes that
 exercise its split / merge passes: ragged and single splits, partial query
 blocks, k = 1 and 8, sentinel slots, and a duplicate point across splits
-(the lower index first, as in the plain version).  chip_smoke.py
-runs the same checks at the main path's full shapes.
+(the lower index first, as in the plain version); E1 (the 6x6
+degeneracy projection) on tests/torch_courses.eig6_spectra at both
+pipeline thresholds, one matrix a call and all in one batch: P within
+1e-5, eigenvalues within 1e-5 of |H|, the keep mask equal, no host sync.
+chip_smoke.py runs the same checks at the main path's full shapes.
 """
 
 import numpy as np
@@ -30,7 +33,7 @@ import torch
 
 from lego_loam_tpu_torch import config_for
 from lego_loam_tpu_torch.io import synthetic as syn
-from lego_loam_tpu_torch.ops import features, knn, segmentation
+from lego_loam_tpu_torch.ops import eig6, features, knn, segmentation
 from lego_loam_tpu_torch.ops.compaction import segment_scan
 from lego_loam_tpu_torch.ops.ground import mark_ground
 from lego_loam_tpu_torch.ops.projection import project_scan
@@ -40,6 +43,7 @@ from tests.test_torch_feature_rows import (THRESHOLD_CFGS, built_rows,
 from tests.test_torch_label_prop import (CASES, SHAPES, label_args,
                                          label_case, reference_labels)
 from tests.test_torch_sensor_rows import mid_row
+from tests.torch_courses import eig6_spectra
 
 pytestmark = pytest.mark.cuda
 CFG = config_for("vlp16")
@@ -212,6 +216,29 @@ def test_knn_kernel_matches_plain(dev, q_n, r_n, k, n_valid, dup):
         assert torch.equal(d2[near, 0], d2[near, 1])
 
 
+@pytest.mark.parametrize("thresh", [10.0, 100.0])
+def test_eig6_kernel_matches_plain(dev, thresh):
+    names, Hs = zip(*eig6_spectra(thresh, seed=2))
+    H = torch.as_tensor(np.stack(Hs), device=dev)
+    scale = H.abs().amax(dim=(1, 2)).clamp(min=1.0)
+    n = eig6.eig6.launches
+    torch.cuda.set_sync_debug_mode("error")   # a host sync would raise
+    try:
+        P, lam, sweeps = eig6.eig6(H, thresh)
+        singles = [eig6.degeneracy_projection(H[i], thresh) for i in range(len(Hs))]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert eig6.eig6.launches == n + 1 + len(Hs)
+    P_ref, lam_ref = eig6.degeneracy_projection_plain(H, thresh)
+    for i, name in enumerate(names):
+        assert (P[i] - P_ref[i]).abs().max().item() <= 1e-5, name
+        assert torch.equal(singles[i][0], P[i]), name
+        assert ((lam[i] - lam_ref[i]).abs().max() / scale[i]).item() <= 1e-5, name
+        assert torch.equal(lam[i] >= thresh, lam_ref[i] >= thresh), name
+        assert 0 <= int(sweeps[i]) <= 8, name
+    assert int(sweeps[names.index("zero")]) == 0
+
+
 def test_wrappers_reject_bad_inputs(dev):
     q = torch.zeros((8, 3), device=dev)
     r = torch.zeros((16, 3), device=dev)
@@ -248,3 +275,10 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="do not fit"):
         features.label_features(wide, CFG)
     assert features.label_features.launches == n
+    # E1: float32 (B, 6, 6) only, before any launch
+    n = eig6.eig6.launches
+    with pytest.raises(ValueError):
+        eig6.eig6(torch.zeros((2, 6, 6), dtype=torch.float64, device=dev), 10.0)
+    with pytest.raises(ValueError):
+        eig6.eig6(torch.zeros((2, 5, 5), device=dev), 10.0)
+    assert eig6.eig6.launches == n

@@ -13,6 +13,8 @@ same configs over the same seeded synthetic scans.
     fast_yaw_imu), tests/test_imu_deskew.py's in-sweep profiles and truth
     buffers (accel_profile, truth_buffer), bench.py's aligned ATE
     (aligned_ate) and a course written to a ROS bag (write_imu_bag).
+  * E1: seeded symmetric 6x6 systems for the degeneracy projection
+    (eig6_spectra), every eigenvalue well away from the threshold.
 
 Scans come from the port's raycaster, which casts byte-identical scans to
 the JAX package's (tests/test_torch_import.py).
@@ -221,3 +223,53 @@ def write_imu_bag(path: str, scans, stamps, imu, scan_period: float) -> None:
         msgs.append(("/velodyne_points", "sensor_msgs/PointCloud2", t + scan_period,
                      bw.encode_pointcloud2(t, xyz[valid], ring[valid].astype(np.uint16))))
     bw.write_bag(path, msgs)
+
+
+# ---------------------------------------------------------------- E1
+
+def _rotation(rng, n: int) -> np.ndarray:
+    q, r = np.linalg.qr(rng.normal(size=(n, n)))
+    return q * np.sign(np.diag(r))
+
+
+def _sym32(H) -> np.ndarray:
+    """float64 H symmetrised, then rounded to float32 (exactly symmetric)."""
+    return (0.5 * (H + H.T)).astype(np.float32)
+
+
+def eig6_spectra(thresh: float, seed: int = 0) -> list:
+    """(name, H) pairs of symmetric (6, 6) float32 systems for the
+    degeneracy projection at `thresh`, each with every eigenvalue at least
+    20 % of thresh away from it (so float32 and float64 eigen-solvers take
+    the same keep mask): spectra across the threshold, all kept, all
+    dropped, repeated eigenvalues on either side, a rank-one system, the
+    odometry's block system with one block masked to exact zeros, a zero
+    matrix and Gram matrices J^T J of random constraint rows."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, lam in (
+            ("across", [0.05, 0.2, 0.7, 4.0, 30.0, 200.0]),
+            ("all_kept", [1.5, 5.0, 10.0, 100.0, 1e3, 3e3]),
+            ("all_dropped", [0.0, 1e-4, 0.01, 0.1, 0.3, 0.8]),
+            ("repeated_kept", [5.0, 5.0, 5.0, 0.1, 0.1, 0.1]),
+            ("repeated_across", [0.3, 0.3, 40.0, 40.0, 40.0, 40.0]),
+            ("rank_one", [0.0, 0.0, 0.0, 0.0, 0.0, 50.0])):
+        Q = _rotation(rng, 6)
+        out.append((name, _sym32(Q @ np.diag(np.asarray(lam) * thresh) @ Q.T)))
+    # block mode: surf rows fill (pitch, roll, tz) = columns 0, 1, 5, and
+    # no corner constraint survives, so rows / columns 2-4 are exact zeros
+    blk = np.zeros((6, 6))
+    Q = _rotation(rng, 3)
+    blk[np.ix_([0, 1, 5], [0, 1, 5])] = Q @ np.diag([2.0, 20.0, 90.0]) @ Q.T * thresh
+    out.append(("block_masked", _sym32(blk)))
+    out.append(("zero", np.zeros((6, 6), np.float32)))
+    for k in range(3):
+        J = rng.normal(size=(64, 6)) * rng.uniform(0.05, 1.5, size=6)
+        H = J.T @ J
+        lam = np.linalg.eigvalsh(H)
+        # keep the Gram spectra off the threshold too: rescale so that the
+        # eigenvalue nearest it sits at 1.5x or 0.5x of it
+        near = lam[np.argmin(np.abs(np.log(np.maximum(lam, 1e-30) / thresh)))]
+        H = H * (thresh * (1.5 if near >= thresh else 0.5) / near)
+        out.append((f"gram_{k}", _sym32(H)))
+    return out
