@@ -107,14 +107,37 @@ Phases (any failure exits non-zero before the result lines):
      chunk arm: SMALL over its 6 scans through process_chunk (chunks of 3)
      on the card against process_scan on the CPU, at the same bounds with
      equal stats and did_map;
-  9. torch.profiler, after every timed phase (a profiler session can leave
+  9. fleet batching at full width (models/batch.py, fleet_phase):
+     config_for("vlp16", deskew=False) at the default capacities, 8
+     sequences of 30 scans (sequence b: circle_trajectory(30, radius=12 +
+     b / 2, arc=(0.35 + 0.02 b) pi) in default_world(0), 1 cm noise, seed
+     1000 b + k; sequence 0 is the slice's course) through
+     BatchPipeline(cfg, B, device="cuda").process_chunk in chunks of 10 at
+     B = 1, 2, 4 and 8, vmap's per-example fallback an error: 0 host syncs
+     a chunk, every kernel launched, and K1, K2, K3 and E1 launched as often
+     a chunk at B = 8 as at B = 1 (K1 times its cooperative launches a call
+     at B = 8, printed); each sequence at B = 8 against its own run through
+     LegoLoamPipeline(cfg, "cuda").process_chunk: equal stats, did_map,
+     loop flags and keyframes, fused and mapped poses within 1 cm / 0.1 deg
+     (FLEET_POS_M says why not 1 mm), ATE under 0.15 m; each kernel's
+     batched launch at B = 8 on the fleet's own inputs against its plain
+     version a sequence at a time (K1, K2 exact; K3 distances to rtol
+     1e-4 / atol 1e-3; E1 P within 1e-5), timed beside the batch's bound;
+     the loop-on arm: the loop path's config at B = 2 over the out-and-back
+     course and the same course in world seed 7, in chunks of 4: the same
+     loops closed and stats as each sequence alone, at most one host sync
+     a loop check in a chunk.  Prints aggregate scans/s, peak memory and
+     syncs per B, each beside the card's name and power limit, and the
+     phase's seconds;
+ 10. torch.profiler, after every timed phase (a profiler session can leave
      the launch path slower for the rest of the process): the device
      kernels one K2 call runs (more than 2 fails), beside those of the
      tensor-op prep it replaced; 6 steady VLP-16 scans of a new pipeline:
      device events a scan, device busy ms a scan and the device's idle
      share; the same over one steady chunk of 10 scans (collect_stats=
-     False); and the same on the IMU course de-skewed with and without the
-     IMU, whose difference is the IMU's device events a scan.
+     False); the same on the IMU course de-skewed with and without the
+     IMU, whose difference is the IMU's device events a scan; and one
+     steady fleet chunk of 6 steps at each B (device events a step).
 
 K1 is also held against its plain version, and timed beside its bound, on
 one synthetic scan of each other sensor preset (OS1-16, HDL-32E, OS1-64,
@@ -129,12 +152,13 @@ every scan from one pose; the IMU phase's swept scans run the default
 deskew=True.  Every other knob is the default PipelineConfig.
 
 Prints the slice's, the HDL-64E path's, the loop path's, the IMU phase's,
-the chunk phases' and the export's numbers, the card-against-CPU gaps,
-K1's at each preset, K2's at HDL-64E and E1's extras as one JSON line,
-then the kernel results as {"kernels": [...]} (K1 at VLP-16's shape; K3
-with its launches a loop check and its loop shapes; every kernel with its
-launches on the slice and inside the chunked run), and as the last line
-{"ok": true, "device": {...}}.
+the chunk phases', the export's and the fleet's numbers, the
+card-against-CPU gaps, K1's at each preset, K2's at HDL-64E and E1's
+extras as one JSON line, then the kernel results as {"kernels": [...]}
+(K1 at VLP-16's shape; K3 with its launches a loop check and its loop
+shapes; every kernel with its launches on the slice, inside the chunked
+run and on the fleet's B = 8 run, and its batched launch at B = 8), and
+as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -185,6 +209,39 @@ C6_CHUNK_C = 3
 # a sweep's off-diagonal sum (15 squares and adds)
 E1_ROTATION_OPS, E1_SWEEP_OPS = 10 + 3 * 36, 30
 E1_TOL = 1e-5
+# fleet batching: FLEET_B sequences of N_SCANS scans run at B of
+# FLEET_BATCHES through BatchPipeline in chunks of CHUNK_C, each sequence
+# held to its own run through LegoLoamPipeline.process_chunk at B = FLEET_B
+# with equal stats, did_map, keyframes and loop flags, and poses within
+# FLEET_POS_M / FLEET_ROT_DEG: C6's bound for the same algorithm under other
+# rounding.  A batched op rounds otherwise than its unbatched form (cuBLAS
+# and the reductions pick their kernels by shape), and a course amplifies a
+# last-bit change to millimetres: on an H100 the batch lands up to 7.1 mm /
+# 0.043 deg from a sequence alone, the same with
+# torch.use_deterministic_algorithms, while two runs alone differ by up to
+# 3.2 mm / 0.011 deg without it (the index_add atomics of the voxel
+# centroids; tests/fleet_gaps.py prints both).  The JAX package's
+# tests/test_batch.py holds its batch to 2 cm for the same reason.
+FLEET_B = 8
+FLEET_POS_M, FLEET_ROT_DEG = C6_POS_M, C6_ROT_DEG
+FLEET_BATCHES = (1, 2, 4, 8)
+FLEET_LOOP_B = 2
+VMAP_FALLBACK = "There is a performance drop"
+
+
+class PhaseClock:
+    """Seconds of each phase since the last call, printed as it ends (a
+    time limit covers the whole run)."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self.name, self.t = "start, card, build, scans", time.perf_counter()
+
+    def __call__(self, name) -> None:
+        now = time.perf_counter()
+        self.seconds[self.name] = round(now - self.t, 1)
+        print(f"phase: {self.name} took {now - self.t:.1f} s", flush=True)
+        self.name, self.t = name, now
 
 
 def fail(msg: str) -> None:
@@ -365,6 +422,17 @@ def k2_case(torch, cfg, img, need_features=True):
     return packed, lab, pick, counts
 
 
+def k2_bound(cfg, count, cells: int):
+    """K2's bound over rings of `count` kept cells (any batch shape) and
+    `cells` output cells: rng, valid, col, ground of each kept cell (10 B),
+    labels and picked of every cell (5 B), count (4 B a ring); operations:
+    the curvature stencil (13 a kept cell), then a compare and a select a
+    kept cell for each pick step."""
+    kept = int(count.clamp(0, cells // count.numel()).sum())
+    steps = cfg.edge_feature_num_less + cfg.surf_feature_num
+    return bound(10 * kept + 5 * cells + 4 * count.numel(), kept * (13 + 2 * steps))
+
+
 def k2_timing(torch, cfg, packed, lab, pick):
     """K2's device and call time, its plain version's and its bound, and
     the host time of the prep it replaced (pick_inputs, the old path's
@@ -376,12 +444,7 @@ def k2_timing(torch, cfg, packed, lab, pick):
     R, W = lab.shape
     counts = packed.count.clamp(0, W).sort().values.tolist()
     kept = sum(counts)
-    steps = cfg.edge_feature_num_less + cfg.surf_feature_num
-    # bytes: rng, valid, col, ground of each kept cell (10 B), labels and
-    # picked of every cell (5 B), count (4 B a ring); operations: the
-    # curvature stencil (13 a kept cell), then a compare and a select a
-    # kept cell for each pick step
-    b_ms, b_by = bound(10 * kept + 5 * R * W + 4 * R, kept * (13 + 2 * steps))
+    b_ms, b_by = k2_bound(cfg, packed.count, R * W)
     return {
         "ms": cuda_ms(torch, kernel, 50), "call_ms": call_ms(torch, kernel, 50),
         "plain_ms": cuda_ms(torch, lambda: fops.label_features_plain(packed, cfg), 5),
@@ -899,12 +962,13 @@ def card_against_cpu(torch, cfg, scans, stamps, every, dev, imu=None):
         gap[prefix + "_m"] = max(gap[prefix + "_m"], m)
         gap[prefix + "_deg"] = max(gap[prefix + "_deg"], deg)
 
-    def map_both(state, feats, opose, t, c, imu_buf=None):
+    def map_both(state, feats, opose, t, c, imu_buf=None, refresh=None):
         if state is not card.mstate:
-            return orig_map(state, feats, opose, t, c, imu_buf=imu_buf)
+            return orig_map(state, feats, opose, t, c, imu_buf=imu_buf,
+                            refresh=refresh)
         _, T_cpu = orig_map(to_cpu(state), to_cpu(feats), to_cpu(opose), t, c,
-                            imu_buf=to_cpu(imu_buf))
-        out = orig_map(state, feats, opose, t, c, imu_buf=imu_buf)
+                            imu_buf=to_cpu(imu_buf), refresh=refresh)
+        out = orig_map(state, feats, opose, t, c, imu_buf=imu_buf, refresh=refresh)
         keep("same_state_solve", *pose_gaps(out[1].R, out[1].t, T_cpu.R, T_cpu.t))
         return out
 
@@ -992,17 +1056,22 @@ def profile_window(torch, fn, n_prof):
     """fn() (n_prof scans' work) under torch.profiler, synchronised: device
     events a scan, device busy ms a scan (the union of their intervals),
     host ms a scan under the profiler, and the device's idle share of that
-    window."""
+    window, and the seconds the trace took to parse.  The profiler records
+    device activity only: nothing here reads the host's op events, and
+    recording them stretched each window to 2-4x a scan's unprofiled host
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
+    t = time.perf_counter()
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    parse_s = time.perf_counter() - t
     if not spans:
         fail("torch.profiler saw no device work over the profiled scans")
     busy, lo, hi = 0.0, spans[0][0], spans[0][1]
@@ -1016,7 +1085,7 @@ def profile_window(torch, fn, n_prof):
     return {"scans": n_prof, "device_events_per_scan": len(spans) / n_prof,
             "device_busy_ms_per_scan": busy / n_prof / 1e3,
             "host_ms_per_scan": wall_us / n_prof / 1e3,
-            "device_idle_share": 1.0 - busy / wall_us}
+            "device_idle_share": 1.0 - busy / wall_us, "parse_s": parse_s}
 
 
 def capture_eig6_inputs(torch, cfg, scans, dev):
@@ -1043,13 +1112,19 @@ def capture_eig6_inputs(torch, cfg, scans, dev):
     return kept
 
 
+E1_BYTES = 36 * 4 + 36 * 4 + 6 * 4 + 4
+
+
+def e1_ops(sweeps: int) -> int:
+    return 72 + sweeps * (15 * E1_ROTATION_OPS + E1_SWEEP_OPS) + 36 * 6 * 3
+
+
 def e1_bound(sweeps: int):
     """E1's bound for one matrix: H read (144 B), P, lam and the sweep
     count written (172 B); float64 operations: the symmetrisation (72),
     `sweeps` Jacobi sweeps of 15 rotations, and P (36 entries of 6 terms,
     3 operations each)."""
-    ops = 72 + sweeps * (15 * E1_ROTATION_OPS + E1_SWEEP_OPS) + 36 * 6 * 3
-    return bound(36 * 4 + 36 * 4 + 6 * 4 + 4, ops, FP64_OPS_PER_S)
+    return bound(E1_BYTES, e1_ops(sweeps), FP64_OPS_PER_S)
 
 
 def check_e1(torch, cfg, captured, dev):
@@ -1293,6 +1368,446 @@ def card_against_cpu_chunks(torch, cfg, scans, dev, C=C6_CHUNK_C):
     return {"scans": len(scans), "chunk": C, "gaps": gap}, faults
 
 
+# ---------------------------------------------------------------- fleet
+
+def fleet_courses(cfg, scans0, poses0):
+    """The fleet's FLEET_B sequences, tests/torch_courses.fleet_course(b):
+    circle_trajectory(30, radius=12 + b / 2, arc=(0.35 + 0.02 b) pi) in
+    default_world(0), 1 cm range noise, rng seed 1000 b + k; sequence 0 is
+    the slice's own course (its scans are passed in).  (Radius 12 + b
+    puts sequence 6 on an 18 m circle where process_scan loses track from
+    scan 21 on: tests/fleet_gaps.py --radius-step 1.)"""
+    from tests.torch_courses import fleet_course
+
+    return [(poses0, scans0)] + [fleet_course(cfg.sensor, b, N_SCANS)
+                                 for b in range(1, FLEET_B)]
+
+
+def fleet_chunks(seqs, C):
+    """(xyz, valid, ring) host arrays (B, C, ...) of the sequences' chunks."""
+    per = [host_chunks(scans, C) for scans in seqs]
+    return [tuple(np.stack([p[k][i] for p in per]) for i in range(3))
+            for k in range(len(per[0]))]
+
+
+def catch_fleet(torch, fn):
+    """catch_syncs for the fleet phase, which also fails on vmap's
+    per-example fallback (an op of the batch path without a batching rule
+    would loop over the batch)."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    slow = {str(w.message)[:160] for w in caught if VMAP_FALLBACK in str(w.message)}
+    if slow:
+        fail(f"the fleet path fell back to vmap's per-example loop: {sorted(slow)}")
+    return out, [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
+
+
+def run_fleet(torch, cfg, chunks, dev, B, every=10):
+    """B sequences through BatchPipeline(cfg, B).process_chunk, the kernel
+    counts set to 0 just before and read after each chunk, each chunk under
+    the sync-debug counting and synchronised at its end.  Aggregate scans/s
+    over the chunks after the first (which warms the allocator and the
+    kernels' build), launches a chunk, syncs a chunk, peak memory."""
+    from lego_loam_tpu_torch.models.batch import BatchPipeline
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bp = BatchPipeline(cfg, B, loop_check_every=every, device=dev)
+    wrappers = kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    results, syncs, sites, secs, per_chunk = [], [], Counter(), [], []
+    for ch in chunks:
+        before = [w.launches for w in wrappers]
+        t = time.perf_counter()
+        res, hits = catch_fleet(torch, lambda: bp.process_chunk(*(a[:B] for a in ch)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        per_chunk.append({w.__name__: w.launches - n for w, n in zip(wrappers, before)})
+        results.append(res)
+        syncs.append(len(hits))
+        sites.update(hits)
+    steady = sum(r.did_map.shape[0] for r in results[1:])
+    return {"bp": bp, "results": results, "syncs_per_chunk": syncs,
+            "sync_sites": dict(sites), "chunk_s": secs,
+            "scans_per_s": B * steady / sum(secs[1:]),
+            "steps_per_s": steady / sum(secs[1:]),
+            "launches": {w.__name__: w.launches for w in wrappers},
+            "launches_per_chunk": per_chunk,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def fleet_gaps(torch, results, b, alone):
+    """Sequence b of the batch's chunk results against its own run through
+    LegoLoamPipeline.process_chunk: largest fused and mapped gaps, and
+    whether stats, did_map and the loop flags are equal."""
+    def cat(rs, f):
+        return torch.cat([f(r) for r in rs])
+
+    mk = cat(alone, lambda r: r.did_map)
+    fused = pose_gaps(cat(results, lambda r: r.fused_poses.R[b]),
+                      cat(results, lambda r: r.fused_poses.t[b]),
+                      cat(alone, lambda r: r.fused_poses.R),
+                      cat(alone, lambda r: r.fused_poses.t))
+    mapped = pose_gaps(cat(results, lambda r: r.mapped_poses.R[b])[mk],
+                       cat(results, lambda r: r.mapped_poses.t[b])[mk],
+                       cat(alone, lambda r: r.mapped_poses.R)[mk],
+                       cat(alone, lambda r: r.mapped_poses.t)[mk])
+    same = (torch.equal(cat(results, lambda r: r.stats[b]), cat(alone, lambda r: r.stats))
+            and torch.equal(cat(results, lambda r: r.did_map), mk)
+            and torch.equal(cat(results, lambda r: r.loop_closed[b]),
+                            cat(alone, lambda r: r.loop_closed)))
+    return {"fused_m": fused[0], "fused_deg": fused[1], "mapped_m": mapped[0],
+            "mapped_deg": mapped[1]}, same
+
+
+def run_alone(torch, cfg, chunks, b, dev, every=10):
+    """Sequence b of the fleet chunks through its own LegoLoamPipeline."""
+    from lego_loam_tpu_torch.models import pipeline as pl
+
+    pipe = pl.LegoLoamPipeline(cfg, dev, loop_check_every=every)
+    return pipe, [pipe.process_chunk(*(a[b] for a in ch)) for ch in chunks]
+
+
+def capture_batched(torch, fn, B):
+    """Runs fn() with each kernel's launcher wrapped to keep a copy of the
+    inputs of its last launch on a batch of B (by shape, and for E1 by
+    threshold); returns {name: [args, ...]}."""
+    from lego_loam_tpu_torch.ops import eig6, features, knn, segmentation
+
+    kept = {}
+    spots = ((segmentation, "_launch_label_prop", lambda a: a[0].dim() == 3),
+             (features, "_launch_label_features", lambda a: a[0].dim() == 3),
+             (knn, "_launch_knn", lambda a: a[0].dim() == 3),
+             (eig6, "eig6", lambda a: a[0].shape[0] == B))
+    origs = [getattr(mod, name) for mod, name, _ in spots]
+
+    def keeper(name, orig, batched):
+        def wrapped(*args):
+            if batched(args):
+                key = (tuple(args[0].shape), args[-1] if name == "eig6" else None)
+                kept.setdefault(name, {})[key] = [
+                    a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+            return orig(*args)
+        # eig6 counts its launches on its module's name, which is this
+        # wrapper while it stands in
+        wrapped.launches = getattr(orig, "launches", 0)
+        return wrapped
+
+    for (mod, name, batched), orig in zip(spots, origs):
+        setattr(mod, name, keeper(name, orig, batched))
+    try:
+        fn()
+    finally:
+        for (mod, name, _), orig in zip(spots, origs):
+            if hasattr(orig, "launches"):
+                orig.launches = getattr(mod, name).launches
+            setattr(mod, name, orig)
+    return {name: list(v.values()) for name, v in kept.items()}
+
+
+def check_fleet_kernels(torch, cfg, captured, B):
+    """Each kernel's batched launch against its plain version on every
+    sequence of the captured B = 8 inputs: K1 and K2 exact, K3 distances
+    to rtol 1e-4 / atol 1e-3 with equal sentinel slots, E1 P within E1_TOL
+    (a keep-mask flip only at the threshold, as check_e1); timed with CUDA
+    events beside the plain version over the batch and the batch's
+    bound."""
+    from types import SimpleNamespace
+
+    from lego_loam_tpu_torch.ops import eig6, features, knn, segmentation
+    from lego_loam_tpu_torch.types import SegmentedScan
+
+    out = {}
+    # K1: (B, R, H) labels and masks
+    args = captured["_launch_label_prop"][-1]
+    ms = cfg.label_prop_max_sweeps
+    got = segmentation._launch_label_prop(*args)
+    for b in range(B):
+        if not torch.equal(got[b], segmentation.propagate_labels_plain(
+                *(a[b] for a in args), ms)):
+            fail(f"K1's batched launch differs from its plain version on sequence {b}")
+    R, H = args[0].shape[1:]
+    out["propagate_labels"] = dict(
+        shape=f"{B}x{R}x{H}", max_abs_err=0.0,
+        launches_per_call=segmentation.label_prop_launches(B, R, H, args[0].device),
+        ms=cuda_ms(torch, lambda: segmentation._launch_label_prop(*args), 50),
+        plain_ms=cuda_ms(torch, lambda: [segmentation.propagate_labels_plain(
+            *(a[b] for a in args), ms) for b in range(B)], 3),
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes(*args, got), 0))))
+    # K2: (B, R, W) packed rows
+    args = captured["_launch_label_features"][-1]
+    lab, pick = features._launch_label_features(*args)
+    pcfg = SimpleNamespace(**dict(zip(features._FLOAT_PARAMS + features._INT_PARAMS,
+                                      args[5] + args[6])))
+    for b in range(B):
+        packed = SegmentedScan(None, args[0][b], args[2][b], None, args[3][b],
+                               args[1][b], args[4][b], None, None)
+        lp, pp = features.label_features_plain(packed, pcfg)
+        if not (torch.equal(lab[b], lp) and torch.equal(pick[b], pp)):
+            fail(f"K2's batched launch differs from its plain version on sequence {b}")
+    out["label_features"] = dict(
+        shape="x".join(map(str, args[0].shape)), max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: features._launch_label_features(*args), 50),
+        plain_ms=cuda_ms(torch, lambda: [features.label_features_plain(SegmentedScan(
+            None, args[0][b], args[2][b], None, args[3][b], args[1][b], args[4][b],
+            None, None), pcfg) for b in range(B)], 3),
+        **dict(zip(("bound_ms", "bound_by"), k2_bound(cfg, args[4], lab.numel()))))
+    # K3: every batched shape of the path (the mapping solve's corner and
+    # surf searches); the largest is the kernels line's
+    rows = []
+    for args in captured["_launch_knn"]:
+        q, r, v, k = args
+        idx, d2 = knn._launch_knn(*args)
+        err = 0.0
+        for b in range(B):
+            pidx, pd2 = knn.knn_plain(q[b], r[b], v[b], k)
+            real = pd2 < 1e29
+            if not torch.equal(real, d2[b] < 1e29) or not torch.allclose(
+                    d2[b][real], pd2[real], rtol=1e-4, atol=1e-3):
+                fail(f"K3's batched launch differs from its plain version on "
+                     f"sequence {b} at {tuple(q.shape)} x {tuple(r.shape)}")
+            if bool(real.any()):
+                err = max(err, float((d2[b][real] - pd2[real]).abs().max()))
+        b_ms, b_by = bound(nbytes(q, r, v, idx, d2),
+                           8 * q.shape[1] * int(v.sum()))
+        rows.append(dict(
+            shape=f"{B}x{q.shape[1]}x{r.shape[1]} k={k}",
+            splits=knn.knn_splits(q.shape[1], r.shape[1], B), max_abs_err=err,
+            ms=cuda_ms(torch, lambda: knn._launch_knn(*args), 20),
+            plain_ms=cuda_ms(torch, lambda: [knn.knn_plain(q[b], r[b], v[b], k)
+                                             for b in range(B)], 2),
+            bound_ms=b_ms, bound_by=b_by, q_n=q.shape[1] * r.shape[1]))
+    rows.sort(key=lambda x: -x.pop("q_n"))
+    out["knn"] = dict(rows[0], shapes=rows[1:])
+    # E1: the odometry's and the mapping solve's (B, 6, 6), against the
+    # plain version run in float64 (E1 diagonalises in float64; a mapping
+    # solve's H can hold a kept and a dropped eigenvalue close enough that
+    # float32 eigh's subspace is off by more than E1_TOL: that gap to the
+    # float32 plain version is printed, not held)
+    rows = []
+    for H, th in captured["eig6"]:
+        P, lam, sw = eig6.eig6(H, th)
+        P64, lam64 = eig6.degeneracy_projection_plain(H.double(), th)
+        scale = H.abs().amax(dim=(1, 2)).clamp(min=1.0)
+        d_p = (P.double() - P64).abs().amax(dim=(1, 2))
+        same = ((lam >= th) == (lam64 >= th)).all(dim=1)
+        at_thresh = ((lam64 - th).abs() <= E1_TOL * scale[:, None]).any(dim=1)
+        bad = (~same & ~at_thresh) | (same & (d_p > E1_TOL))
+        if bool(bad.any()):
+            i = int(bad.nonzero()[0, 0])
+            fail(f"E1's batched launch differs from its plain version (float64) at "
+                 f"threshold {th} on sequence {i}: |dP| {float(d_p[i]):.3g}, "
+                 f"eigenvalues {lam[i].tolist()} against {lam64[i].tolist()}")
+        d_p32 = (P - eig6.degeneracy_projection_plain(H, th)[0]).abs().amax(dim=(1, 2))
+        ms_b, by = bound(E1_BYTES * B, sum(map(e1_ops, sw.tolist())), FP64_OPS_PER_S)
+        rows.append(dict(shape=f"{B}x6x6", thresh=th,
+                         max_abs_err=float(d_p[same].max()) if bool(same.any()) else 0.0,
+                         float32_plain_max_abs_err=float(d_p32.max()),
+                         near_threshold_flips=int((~same).sum()),
+                         ms=cuda_ms(torch, lambda: eig6.eig6(H, th), 100),
+                         plain_ms=cuda_ms(torch, lambda: eig6.degeneracy_projection_plain(
+                             H, th), 20),
+                         bound_ms=ms_b, bound_by=by))
+    rows.sort(key=lambda x: x["thresh"])
+    out["eig6"] = dict(rows[0], shapes=rows[1:])
+    return out
+
+
+def run_fleet_loop(torch, lccfg, dev):
+    """The loop-on arm: lccfg (the loop path's full-width config, the
+    course's 0.55 s stamps as the scan period) at B = 2 over the
+    out-and-back course and the same course in world seed 7 (noise seed
+    500 + k), in chunks of LOOP_CHUNK_C, against each sequence alone."""
+    from lego_loam_tpu_torch.io import synthetic as syn
+    from tests.torch_courses import LOOP_CHECK_EVERY, loop_course, loop_positions
+
+    positions, scans0, _ = loop_course(lccfg.sensor)
+    world = syn.default_world(seed=7)
+    scans1 = [syn.raycast(world, np.eye(3), t, lccfg.sensor, noise=0.01,
+                          rng=np.random.default_rng(500 + k))
+              for k, t in enumerate(loop_positions())]
+    chunks = fleet_chunks([scans0, scans1], LOOP_CHUNK_C)
+    fl = run_fleet(torch, lccfg, chunks, dev, 2, LOOP_CHECK_EVERY)
+    bp, res = fl.pop("bp"), fl.pop("results")
+    n = len(scans0)
+    fl["loop_checks_per_chunk"] = [
+        sum(1 for f in range(k, min(k + LOOP_CHUNK_C, n)) if f % LOOP_CHECK_EVERY == 0)
+        for k in range(0, n, LOOP_CHUNK_C)]
+    fl["sequences"] = []
+    for b in range(2):
+        pipe, alone = run_alone(torch, lccfg, chunks, b, dev, LOOP_CHECK_EVERY)
+        gaps, same = fleet_gaps(torch, res, b, alone)
+        closed = torch.cat([r.loop_closed[b] for r in res]).tolist()
+        fl["sequences"].append(dict(
+            gaps=gaps, same=same, loops_closed_at=[k for k, c in enumerate(closed) if c],
+            alone_closed_at=[k for k, c in enumerate(torch.cat(
+                [r.loop_closed for r in alone]).tolist()) if c],
+            n_kf=int(bp.mstate.n_kf[b]), alone_n_kf=int(pipe.mstate.n_kf)))
+    seq0 = torch.cat([r.fused_poses.t[0] for r in res]).cpu().numpy()
+    fl["final_err_m"] = float(np.linalg.norm(seq0[-1] - (positions[-1] - positions[0])))
+    return fl
+
+
+def profile_fleet(torch, cfg, chunks, dev, B):
+    """Device activity of a steady chunk of 6 steps of the batch, scans 3-8
+    (2 mapping solves, a third of the steps as in a chunk of 10), after
+    scans 0-2 through the same new BatchPipeline: profile_window, a step
+    being one scan of every sequence."""
+    from lego_loam_tpu_torch.models.batch import BatchPipeline
+
+    bp = BatchPipeline(cfg, B, device=dev)
+    bp.process_chunk(*(a[:B, :3] for a in chunks[0]))
+    return profile_window(
+        torch, lambda: bp.process_chunk(*(a[:B, 3:9] for a in chunks[0])), 6)
+
+
+def fleet_phase(torch, cfg, scans, poses, lccfg, results, card, dev):
+    """Fleet batching at full width (models/batch.py): FLEET_B sequences of
+    the slice's config (the slice's own course first), each step vmapped
+    over the batch and every kernel one launch a call site for all of
+    them, at B of FLEET_BATCHES; each sequence held to its own run; each
+    kernel's batched launch against its plain version; the loop-on arm.
+    vmap's per-example fallback is an error here.  Adds each kernel's
+    fleet launches and batched timing to its row of `results`; returns
+    (the phase's numbers, the fleet chunks for the profiler phase)."""
+    warnings.filterwarnings("error", message=VMAP_FALLBACK)
+    t_fleet = t0 = time.perf_counter()
+    fseqs = fleet_courses(cfg, scans, poses)
+    fchunks = fleet_chunks([s for _, s in fseqs], CHUNK_C)
+    fleet = {"card": card, "runs": {}}
+    print(f"fleet: {FLEET_B} VLP-16 sequences of {N_SCANS} scans (sequence b: "
+          f"radius 12 + b / 2 m, arc (0.35 + 0.02 b) pi, noise seed 1000 b + k), "
+          f"cast in {time.perf_counter() - t0:.1f} s")
+    fb = fres = None
+    for B in FLEET_BATCHES:
+        fl = run_fleet(torch, cfg, fchunks, dev, B)
+        if B == FLEET_B:
+            fb, fres = fl["bp"], fl["results"]
+        del fl["bp"], fl["results"]
+        fleet["runs"][B] = fl
+        print(f"fleet [{card}]: B = {B}: {fl['scans_per_s']:.2f} scans/s aggregate "
+              f"({fl['steps_per_s']:.2f} steps/s) over chunks 2-3 of {CHUNK_C}; chunk "
+              f"seconds {[round(x, 3) for x in fl['chunk_s']]}; peak memory "
+              f"{fl['peak_mem_bytes'] / 2**20:.1f} MiB; host syncs per chunk "
+              f"{fl['syncs_per_chunk']} by site {fl['sync_sites']}; launches a "
+              f"chunk {fl['launches_per_chunk'][1]}")
+        if any(fl["syncs_per_chunk"]):
+            fail(f"fleet B = {B}: host syncs per chunk {fl['syncs_per_chunk']}, not 0 "
+                 f"({fl['sync_sites']})")
+        for key, count in fl["launches"].items():
+            if count == 0:
+                fail(f"kernel {key} was not launched on the fleet path at B = {B}")
+    from lego_loam_tpu_torch.ops.segmentation import label_prop_launches
+    k1_calls = label_prop_launches(FLEET_B, cfg.sensor.n_scan, cfg.sensor.horizon_scan, dev)
+    fleet["k1_launches_per_call"] = k1_calls
+    one, many = fleet["runs"][1]["launches_per_chunk"], fleet["runs"][FLEET_B]["launches_per_chunk"]
+    for c, (a, b) in enumerate(zip(one, many)):
+        for key in a:
+            want = a[key] * (k1_calls if key == "propagate_labels" else 1)
+            if b[key] != want:
+                fail(f"fleet: {key} launched {b[key]} times in chunk {c} at B = "
+                     f"{FLEET_B}, against {a[key]} at B = 1")
+    print(f"fleet: launches a chunk at B = {FLEET_B} equal B = 1's for K2, K3 and "
+          f"E1; K1 takes {k1_calls} cooperative launch(es) a call at B = {FLEET_B} "
+          + ("(one: the batch's blocks are co-resident)" if k1_calls == 1 else
+             "(split: the batch's blocks are not all co-resident)"))
+    fleet["sequences"] = []
+    for b, (fposes, _) in enumerate(fseqs):
+        apipe, alone = run_alone(torch, cfg, fchunks, b, dev)
+        gaps, same = fleet_gaps(torch, fres, b, alone)
+        traj = torch.cat([t[b] for t in fb.trajectory]).cpu().numpy()
+        R0, tr0 = fposes[0]
+        ate = float(np.sqrt(np.mean([np.sum((R0 @ p + tr0 - t) ** 2)
+                                     for p, (_, t) in zip(traj, fposes)])))
+        row = dict(gaps=gaps, same=same, ate_m=ate, n_kf=int(fb.mstate.n_kf[b]),
+                   alone_n_kf=int(apipe.mstate.n_kf))
+        fleet["sequences"].append(row)
+        print(f"fleet: sequence {b} at B = {FLEET_B} against its own process_chunk "
+              f"run: fused {gaps['fused_m'] * 1e3:.4f} mm / {gaps['fused_deg']:.5f} "
+              f"deg, mapped {gaps['mapped_m'] * 1e3:.4f} mm / "
+              f"{gaps['mapped_deg']:.5f} deg; stats, did_map and loop flags "
+              f"{'equal' if same else 'DIFFER'}; {row['n_kf']} keyframes "
+              f"({row['alone_n_kf']} alone); ATE {ate:.4f} m")
+        if not same or row["n_kf"] != row["alone_n_kf"]:
+            fail(f"fleet sequence {b}: stats, did_map, loop flags or keyframes "
+                 f"differ from its own run")
+        if max(gaps["fused_m"], gaps["mapped_m"]) > FLEET_POS_M or \
+                max(gaps["fused_deg"], gaps["mapped_deg"]) > FLEET_ROT_DEG:
+            fail(f"fleet sequence {b}: poses differ from its own run by {gaps}")
+        if not ate < ATE_BOUND:
+            fail(f"fleet sequence {b}: ATE {ate:.4f} m is not under {ATE_BOUND} m")
+        del apipe, alone
+    del fb, fres
+    # each kernel's batched launch at B = FLEET_B against its plain version,
+    # on the inputs of the fleet path's first two chunks (the local map is
+    # gathered from the keyframes at the 5th solve, scan 12, and kept for
+    # the next 3: the last call of each shape sees a full map)
+    from lego_loam_tpu_torch.models.batch import BatchPipeline
+
+    def capture_run():
+        bp = BatchPipeline(cfg, FLEET_B, device=dev)
+        for ch in fchunks[:2]:
+            bp.process_chunk(*ch)
+
+    fk = check_fleet_kernels(torch, cfg, capture_batched(torch, capture_run, FLEET_B),
+                             FLEET_B)
+    for r, key in zip(results, ("propagate_labels", "label_features", "knn", "eig6")):
+        r["fleet_launches"] = fleet["runs"][FLEET_B]["launches"][key]
+        r["fleet"] = fk[key]
+        k = fk[key]
+        print(f"fleet [{card}]: {r['name']} batched at {k['shape']}: kernel "
+              f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, max|err| "
+              f"{k['max_abs_err']:.3g}, bound {k['bound_ms']:.6f} ms "
+              f"({k['bound_by']}), {100 * k['bound_ms'] / k['ms']:.3f} % of it; "
+              f"{r['fleet_launches']} launches on the B = {FLEET_B} run")
+        for extra in [k] + k.get("shapes", []):
+            if extra is not k:
+                print(f"fleet [{card}]:   also at {extra['shape']}"
+                      + (f" (threshold {extra['thresh']})" if "thresh" in extra else "")
+                      + f": kernel {extra['ms']:.4f} ms, plain {extra['plain_ms']:.4f} "
+                      f"ms, max|err| {extra['max_abs_err']:.3g}, bound "
+                      f"{extra['bound_ms']:.6f} ms ({extra['bound_by']})")
+            if "float32_plain_max_abs_err" in extra:
+                print(f"fleet [{card}]:   E1 at threshold {extra['thresh']}: P against "
+                      f"the float32 plain version within "
+                      f"{extra['float32_plain_max_abs_err']:.3g}, keep-mask flips at "
+                      f"the threshold {extra['near_threshold_flips']}")
+    # the loop-on arm: the loop path's full-width config at B = 2
+    fl = run_fleet_loop(torch, lccfg, dev)
+    fleet["loop"] = fl
+    print(f"fleet loop [{card}]: B = {FLEET_LOOP_B}, {fl['scans_per_s']:.2f} scans/s; "
+          f"host syncs per chunk {fl['syncs_per_chunk']} (loop checks per chunk "
+          f"{fl['loop_checks_per_chunk']}) by site {fl['sync_sites']}; "
+          f"sequence 0's final pose {fl['final_err_m']:.4f} m from the truth; "
+          + "; ".join(f"sequence {b}: loops closed at {q['loops_closed_at']} "
+                      f"(alone {q['alone_closed_at']}), fused gap "
+                      f"{q['gaps']['fused_m'] * 1e3:.4f} mm / {q['gaps']['fused_deg']:.5f} "
+                      f"deg" for b, q in enumerate(fl["sequences"])))
+    for b, q in enumerate(fl["sequences"]):
+        if q["loops_closed_at"] != q["alone_closed_at"] or not q["same"]:
+            fail(f"fleet loop arm: sequence {b} closed other loops (or made other "
+                 f"stats) than alone")
+    if not fl["sequences"][0]["loops_closed_at"]:
+        fail("fleet loop arm: no loop closed on the out-and-back course")
+    if any(s > c for s, c in zip(fl["syncs_per_chunk"], fl["loop_checks_per_chunk"])):
+        fail(f"fleet loop arm: host syncs per chunk {fl['syncs_per_chunk']} over the "
+             f"loop checks {fl['loop_checks_per_chunk']}")
+    for key, count in fl["launches"].items():
+        if count == 0:
+            fail(f"kernel {key} was not launched on the fleet's loop arm")
+    fleet["seconds"] = time.perf_counter() - t_fleet
+    print(f"fleet: the phase took {fleet['seconds']:.1f} s")
+    return fleet, fchunks
+
+
 def main() -> None:
     import torch
 
@@ -1310,6 +1825,7 @@ def main() -> None:
                                      fast_yaw_imu, loop_course, slice_course)
 
     dev = torch.device("cuda:0")
+    clock = PhaseClock()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"card: {card}")
@@ -1342,6 +1858,7 @@ def main() -> None:
     himg = project_scan(*(torch.as_tensor(a, device=dev) for a in hscans[0][:2]),
                         hcfg, None)
     results = []
+    clock("kernels against their plain versions")
     for r, note in (check_k1(torch, cfg, imgs, dev),
                     check_k2(torch, cfg, imgs, hcfg, himg, dev),
                     check_k3(torch, cfg, world, dev)):
@@ -1356,6 +1873,7 @@ def main() -> None:
     results.append(check_e1(torch, cfg, capture_eig6_inputs(torch, cfg, scans[:7], dev),
                             dev))
 
+    clock("the slice")
     sl = run_slice(torch, cfg, scans, poses, dev)
     rows = sl.pop("_rows")
     print(f"slice: {N_SCANS} scans, ATE {sl['ate_m']:.4f} m (max "
@@ -1383,6 +1901,7 @@ def main() -> None:
     # with and without collect_stats, held to the per-scan run above; a
     # second per-scan run first, whose gap to the first is the card's own
     # run-to-run variation, the yardstick of the chunk's gaps
+    clock("the slice in chunks, the export")
     again = pl.LegoLoamPipeline(cfg, dev)
     again_rows = [again.process_scan(*s) for s in device_scans(torch, cfg, scans, dev)]
     chunk = {"process_scan_repeat": dict(zip(("fused_m", "fused_deg"), pose_gaps(
@@ -1448,6 +1967,7 @@ def main() -> None:
     chunk["process_scan_no_stats_syncs"] = quiet
     del nopipe
 
+    clock("the HDL-64E path")
     hl = run_slice(torch, hcfg, hscans, hposes, dev, HDL_WARM, HDL_SYNC)
     hl.pop("_rows")
     print(f"hdl64e: {HDL_SCANS} scans ({hcfg.sensor.n_scan} x "
@@ -1476,6 +1996,7 @@ def main() -> None:
               "kf_outlier_cap", "max_loop_edges", "pg_gn_iters",
               "loop_icp_iters", "history_keyframe_search_num")))
     positions, lscans, stamps = loop_course(lcfg.sensor)
+    clock("the loop path")
     lp = run_loop_path(torch, lcfg, lscans, stamps, positions, LOOP_CHECK_EVERY, dev)
     icp_in = lp.pop("_icp")
     ms = lp["check_ms"]
@@ -1516,6 +2037,7 @@ def main() -> None:
     # deskew=False the period enters nothing but the stamps)
     lccfg = lcfg.replace(sensor=dataclasses.replace(lcfg.sensor,
                                                     scan_period=LOOP_SCAN_PERIOD))
+    clock("the loop path in chunks")
     lch = run_chunks(torch, lccfg, lscans, dev, LOOP_CHUNK_C, True, LOOP_CHECK_EVERY)
     lpipe, lres = lch.pop("pipe"), lch.pop("results")
     lch["loop_closed"] = torch.cat([r.loop_closed for r in lres]).tolist()
@@ -1547,6 +2069,7 @@ def main() -> None:
 
     # the IMU path at full width: the default PipelineConfig (deskew=True)
     icfg = config_for("vlp16")
+    clock("the IMU path")
     t0 = time.perf_counter()
     iposes, iscans, istamps = fast_yaw_course(icfg.sensor, IMU_SCANS)
     iimu = [fast_yaw_imu(k, icfg.sensor.scan_period) for k in range(IMU_SCANS)]
@@ -1598,6 +2121,7 @@ def main() -> None:
 
     # the card against a CPU run: the main path, the loop path and the IMU
     # path (de-skew on, the fast-yaw course's first scans and IMU stream)
+    clock("the card against a CPU run")
     c6 = {}
     poses6, scans6 = slice_course(cfg.sensor)
     lpos, lscans6, lstamps = loop_course(cfg.sensor, LOOP_SHORT_OUT)
@@ -1638,7 +2162,12 @@ def main() -> None:
     if faults:
         fail("the card's chunks differ from the CPU run: " + "; ".join(faults))
 
+    # fleet batching at full width (models/batch.py)
+    clock("fleet batching")
+    fleet, fchunks = fleet_phase(torch, cfg, scans, poses, lccfg, results, card, dev)
+
     # profiler phases last: they must not slow the timed ones
+    clock("the profiler")
     k2_device_kernels(torch, results[1])
     sl["profile"] = pr = profile_scans(torch, cfg, scans, dev)
     print(f"slice: torch.profiler over {pr['scans']} steady scans: "
@@ -1665,9 +2194,19 @@ def main() -> None:
           f"{100 * pimu['device_idle_share']:.1f} %): the IMU adds "
           f"{pimu['device_events_per_scan'] - pon['device_events_per_scan']:.0f} "
           f"device events a scan")
+    for B in FLEET_BATCHES:
+        fleet["runs"][B]["profile"] = pf = profile_fleet(torch, cfg, fchunks, dev, B)
+        print(f"fleet [{card}]: torch.profiler over a steady chunk of 6 at B = {B}: "
+              f"{pf['device_events_per_scan']:.0f} device events a step "
+              f"({pf['device_events_per_scan'] / B:.0f} a scan), device busy "
+              f"{pf['device_busy_ms_per_scan']:.2f} ms of "
+              f"{pf['host_ms_per_scan']:.2f} ms a step: device idle "
+              f"{100 * pf['device_idle_share']:.1f} %")
 
+    clock(None)
     print(json.dumps({"slice": sl, "hdl64e": hl, "loop": lp, "imu": arms,
                       "chunk": chunk, "export": export, "card_vs_cpu": c6,
+                      "fleet": fleet, "phase_s": clock.seconds,
                       "k1_presets": results[0]["presets"],
                       "k2_hdl64e": results[1]["hdl64e"],
                       "e1": {k: results[3][k] for k in (
@@ -1679,7 +2218,8 @@ def main() -> None:
                                  "launches", "max_abs_err", "ms", "call_ms",
                                  "plain_ms", "bound_ms", "bound_by", "library_ms",
                                  "launches_per_loop_check", "loop_shapes",
-                                 "launches_in_chunks", "note")
+                                 "launches_in_chunks", "fleet_launches",
+                                 "fleet", "note")
          if key in r}
         for r in results]}))
     print(json.dumps({"ok": True, "device": {

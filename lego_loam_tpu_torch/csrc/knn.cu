@@ -19,10 +19,12 @@
 //
 // What the design does about it: every SM busy, a candidate kept to 3 FMAs
 // and a compare, and no work on what cannot change a list.
-//  * Pass 1 (knn_split_kernel) runs a 2-D grid of query tiles x reference
-//    splits; the wrapper picks the most splits S that keep the grid within
-//    one wave of 4 blocks per SM, each split at least 256 references long
-//    (ops/knn.py::knn_splits).  Each block stages its split's
+//  * Pass 1 (knn_split_kernel) runs a grid of query tiles x reference
+//    splits x problems (a batch of B independent searches, models/batch.py,
+//    one launch); the wrapper picks the most splits S that keep the grid
+//    within one wave of 4 blocks per SM, each split at least 256 references
+//    long (ops/knn.py::knn_splits).  The split does not change the result:
+//    the top-k with ties to the lower index is unique.  Each block stages its split's
 //    (x, y, z, |r|^2) float4 tiles in shared memory, built from the (N, 3)
 //    points and the validity mask as it loads them (no preparing launch),
 //    where every thread reads the same float4 (a broadcast).  Of a tile
@@ -35,8 +37,9 @@
 //    Insertions stay the main cost above the scan: a split's list takes
 //    ~k (1 + ln(split / k)) of them, and a warp waits for each one any of its
 //    32 lanes makes.
-//  * Pass 2 (knn_merge_kernel), one thread per query, merges the S sorted
-//    lists of (rank, index) from scratch (S, k, Q) in split order, which
+//  * Pass 2 (knn_merge_kernel), one thread per query of each problem, merges
+//    the S sorted lists of (rank, index) from scratch (B, S, k, Q) in split
+//    order, which
 //    gives lax.top_k's lowest-index rule across splits, then applies the
 //    |q|^2 / clamp / sentinel epilogue, each winner evaluated again in the
 //    plain version's rounding order (see finish).  With S = 1 pass 1 writes
@@ -111,6 +114,14 @@ knn_split_kernel(const float* __restrict__ query,
                  float* __restrict__ out_d, int32_t* __restrict__ out_i) {
   __shared__ float4 tile[kTile + kChunk];     // + the prefetch's overrun
   const int S = gridDim.y;
+  {  // problem blockIdx.z of the batch
+    const size_t b = blockIdx.z;
+    query += b * Q * 3;
+    ref += b * N * 3;
+    ref_valid += b * N;
+    out_d += b * Q * S * K;
+    out_i += b * Q * S * K;
+  }
   const int q = blockIdx.x * kThreads + threadIdx.x;
   const int r0 = blockIdx.y * split;
   const int r1 = min(N, r0 + split);
@@ -194,8 +205,17 @@ __global__ void __launch_bounds__(kMergeThreads)
 knn_merge_kernel(const float* __restrict__ query,
                  const float* __restrict__ ref,
                  const float* __restrict__ part_d,
-                 const int32_t* __restrict__ part_i, int Q, int S,
+                 const int32_t* __restrict__ part_i, int N, int Q, int S,
                  int32_t* __restrict__ idx_out, float* __restrict__ d2_out) {
+  {  // problem blockIdx.y of the batch
+    const size_t b = blockIdx.y;
+    query += b * Q * 3;
+    ref += b * N * 3;
+    part_d += b * Q * S * K;
+    part_i += b * Q * S * K;
+    idx_out += b * Q * K;
+    d2_out += b * Q * K;
+  }
   const int q = blockIdx.x * kMergeThreads + threadIdx.x;
   if (q >= Q) return;
   float bd[K];
@@ -236,55 +256,57 @@ knn_merge_kernel(const float* __restrict__ query,
 
 template <int K>
 cudaError_t launch(const float* query, const float* ref, const uint8_t* valid,
-                   int Q, int N, int S,
+                   int B, int Q, int N, int S,
                    float* scratch, int32_t* idx, float* d2,
                    cudaStream_t stream) {
   const int split = (N + S - 1) / S;
-  const dim3 grid((Q + kThreads - 1) / kThreads, S);
+  const dim3 grid((Q + kThreads - 1) / kThreads, S, B);
   if (S == 1) {
     knn_split_kernel<K><<<grid, kThreads, 0, stream>>>(query, ref, valid, Q,
                                                        N, split, d2, idx);
     return cudaGetLastError();
   }
   float* part_d = scratch;
-  int32_t* part_i = reinterpret_cast<int32_t*>(scratch + (size_t)Q * S * K);
+  int32_t* part_i = reinterpret_cast<int32_t*>(scratch + (size_t)B * Q * S * K);
   knn_split_kernel<K><<<grid, kThreads, 0, stream>>>(query, ref, valid, Q, N,
                                                      split, part_d, part_i);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  knn_merge_kernel<K><<<(Q + kMergeThreads - 1) / kMergeThreads,
+  knn_merge_kernel<K><<<dim3((Q + kMergeThreads - 1) / kMergeThreads, B),
                         kMergeThreads, 0, stream>>>(query, ref, part_d, part_i,
-                                                    Q, S, idx, d2);
+                                                    N, Q, S, idx, d2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// scratch: 2 * S * k * Q 32-bit words (ranks, then indices); unused when
-// S = 1.  Every split is [s * ceil(N / S), +ceil(N / S)) clipped to N.
+// B problems stored one after another: query (B, Q, 3), ref (B, N, 3),
+// ref_valid (B, N), idx and d2 (B, Q, k).  scratch: 2 * B * S * k * Q 32-bit
+// words (ranks, then indices); unused when S = 1.  Every split is
+// [s * ceil(N / S), +ceil(N / S)) clipped to N.
 extern "C" int lego_knn(const float* query, const float* ref,
-                        const uint8_t* ref_valid, int Q, int N,
+                        const uint8_t* ref_valid, int B, int Q, int N,
                         int k, int S, float* scratch, int32_t* idx, float* d2,
                         cudaStream_t stream) {
-  if (Q < 1 || N < 1 || S < 1 || S > N || S > 65535 ||
+  if (B < 1 || B > 65535 || Q < 1 || N < 1 || S < 1 || S > N || S > 65535 ||
       (S > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   switch (k) {
-    case 1: return (int)launch<1>(query, ref, ref_valid, Q, N, S, scratch, idx,
+    case 1: return (int)launch<1>(query, ref, ref_valid, B, Q, N, S, scratch, idx,
                                       d2, stream);
-    case 2: return (int)launch<2>(query, ref, ref_valid, Q, N, S, scratch, idx,
+    case 2: return (int)launch<2>(query, ref, ref_valid, B, Q, N, S, scratch, idx,
                                       d2, stream);
-    case 3: return (int)launch<3>(query, ref, ref_valid, Q, N, S, scratch, idx,
+    case 3: return (int)launch<3>(query, ref, ref_valid, B, Q, N, S, scratch, idx,
                                       d2, stream);
-    case 4: return (int)launch<4>(query, ref, ref_valid, Q, N, S, scratch, idx,
+    case 4: return (int)launch<4>(query, ref, ref_valid, B, Q, N, S, scratch, idx,
                                       d2, stream);
-    case 5: return (int)launch<5>(query, ref, ref_valid, Q, N, S, scratch, idx,
+    case 5: return (int)launch<5>(query, ref, ref_valid, B, Q, N, S, scratch, idx,
                                       d2, stream);
-    case 6: return (int)launch<6>(query, ref, ref_valid, Q, N, S, scratch, idx,
+    case 6: return (int)launch<6>(query, ref, ref_valid, B, Q, N, S, scratch, idx,
                                       d2, stream);
-    case 7: return (int)launch<7>(query, ref, ref_valid, Q, N, S, scratch, idx,
+    case 7: return (int)launch<7>(query, ref, ref_valid, B, Q, N, S, scratch, idx,
                                       d2, stream);
-    case 8: return (int)launch<8>(query, ref, ref_valid, Q, N, S, scratch, idx,
+    case 8: return (int)launch<8>(query, ref, ref_valid, B, Q, N, S, scratch, idx,
                                       d2, stream);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -30,7 +30,12 @@
 //    SM and every preset is co-resident on 132 SMs; the wrapper checks that
 //    against cudaOccupancyMaxActiveBlocksPerMultiprocessor before the
 //    launch, and a cooperative launch that does not fit is refused by the
-//    runtime as well.  Taller tiles (16 x 64, 16 x 128) spent longer in
+//    runtime as well.  A batch of B scans (models/batch.py) is one launch
+//    of B times a scan's blocks, block i on tile i % tiles of scan
+//    i / tiles; the barriers then span the batch, so the wrapper
+//    (ops/segmentation.py) splits a batch into the fewest launches whose
+//    blocks are co-resident (VLP-16 at B = 8 is 464 blocks, one launch;
+//    HDL-64E at B = 8 is 1856, more than one).  Taller tiles (16 x 64, 16 x 128) spent longer in
 //    phase A than they saved in phase B on real scans; 4-row tiles the
 //    reverse.
 //  * Loads first: each thread issues every load it needs (labels, the
@@ -139,14 +144,23 @@ label_prop_kernel(const int32_t* __restrict__ labels0,
                   const uint8_t* __restrict__ conn_right,
                   const uint8_t* __restrict__ conn_up,
                   const uint8_t* __restrict__ conn_down,
-                  int32_t* out, int R, int H, int tiles_x) {
+                  int32_t* out, int R, int H, int tiles_x, int tiles) {
   __shared__ int s_par[kTilePx];
   __shared__ uint32_t s_left[kTilePx / 32];   // bit: joined to the left pixel
   const int n = R * H;
+  // scan blockIdx.x / tiles of the batch: every index below is local to it
+  const size_t scan = (size_t)(blockIdx.x / tiles) * n;
+  labels0 += scan;
+  conn_left += scan;
+  conn_right += scan;
+  conn_up += scan;
+  conn_down += scan;
+  out += scan;
+  const int tile = blockIdx.x % tiles;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int r0 = (blockIdx.x / tiles_x) * kTileRows;
-  const int c0 = (blockIdx.x % tiles_x) * kTileCols;
+  const int r0 = (tile / tiles_x) * kTileRows;
+  const int c0 = (tile % tiles_x) * kTileCols;
   const int th = min(kTileRows, R - r0);
   const int tw = min(kTileCols, H - c0);
   // this thread's pixels: column lc of the tile, rows lr0, lr0 + kRowStep
@@ -299,16 +313,21 @@ extern "C" int lego_label_prop_max_blocks() {
   return coop ? per_sm * sms : 0;
 }
 
+// B scans of R x H, stored one after another, in one cooperative launch of
+// B x lego_label_prop_grid(R, H) blocks (the caller keeps that within
+// lego_label_prop_max_blocks()).
 extern "C" int lego_label_prop(const int32_t* labels0, const uint8_t* conn_left,
                                const uint8_t* conn_right, const uint8_t* conn_up,
                                const uint8_t* conn_down, int32_t* out, int R,
-                               int H, cudaStream_t stream) {
+                               int H, int B, cudaStream_t stream) {
+  if (R < 1 || H < 1 || B < 1) return (int)cudaErrorInvalidValue;
   int tiles_x = (H + kTileCols - 1) / kTileCols;
+  int tiles = lego_label_prop_grid(R, H);
   void* args[] = {(void*)&labels0, (void*)&conn_left, (void*)&conn_right,
                   (void*)&conn_up, (void*)&conn_down, (void*)&out,
-                  (void*)&R, (void*)&H, (void*)&tiles_x};
+                  (void*)&R, (void*)&H, (void*)&tiles_x, (void*)&tiles};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)label_prop_kernel, dim3(lego_label_prop_grid(R, H)),
-      dim3(kThreads), args, 0, stream);
+      (const void*)label_prop_kernel, dim3(B * tiles), dim3(kThreads), args, 0,
+      stream);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }

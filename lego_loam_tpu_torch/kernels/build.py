@@ -12,6 +12,14 @@ raises if it is not 0.
 
 Nothing here touches CUDA at import time: the CPU tests import every
 module, and only a call that launches a kernel builds or loads anything.
+
+Each kernel is also a ``torch.library.custom_op`` (namespace ``lego``,
+defined beside its wrapper in the ops modules), so that
+``torch.func.vmap`` sees it: the vmapped batch of a sequence fleet
+(models/batch.py) reaches the op's vmap rule, which moves the batch to the
+front with :func:`batch_front` and calls the op once on the whole batch --
+on the card one launch for all B, on the CPU the plain version once per
+batch element (:func:`per_element`).
 """
 
 from __future__ import annotations
@@ -34,14 +42,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # labels0, conn_left, conn_right, conn_up, conn_down, out, R, H, stream
-    "lego_label_prop": [_P] * 6 + [_I] * 2 + [_P],
+    # labels0, conn_left, conn_right, conn_up, conn_down, out, R, H, B, stream
+    "lego_label_prop": [_P] * 6 + [_I] * 3 + [_P],
     "lego_label_prop_grid": [_I, _I],       # R, H -> blocks of one launch
     "lego_label_prop_max_blocks": [],       # -> blocks the device holds at once
     # rng, valid, col, ground, count, labels, picked, R, W, &params, stream
     "lego_label_features": [_P] * 7 + [_I] * 2 + [_P] * 2,
-    # query, ref, ref_valid, Q, N, k, S, scratch, idx, d2, stream
-    "lego_knn": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # query, ref, ref_valid, B, Q, N, k, S, scratch, idx, d2, stream
+    "lego_knn": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # H, thresh, P, lam, sweeps, B, stream
     "lego_eig6": [_P, ctypes.c_float, _P, _P, _P, _I, _P],
 }
@@ -139,3 +147,36 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def batch_front(info, in_dims, *args):
+    """The arguments of a custom op's vmap rule with the vmapped dimension
+    in front: a batched tensor moved there, an unbatched one expanded (a
+    view), anything else as it is."""
+    out = []
+    for a, d in zip(args, in_dims):
+        if not isinstance(a, torch.Tensor):
+            out.append(a)
+        elif d is None:
+            out.append(a.expand(info.batch_size, *a.shape))
+        else:
+            out.append(a.movedim(d, 0))
+    return out
+
+
+def per_element(fn, n_lead: int, *args):
+    """fn over the leading batch dimensions of its tensor arguments, one
+    element at a time, outputs stacked: the plain version of a custom op
+    on a batch.  `n_lead` is the number of leading batch dimensions; a
+    call without any is fn itself."""
+    if n_lead == 0:
+        return fn(*args)
+    lead = next(a for a in args if isinstance(a, torch.Tensor)).shape[:n_lead]
+    flat = [a.reshape((-1,) + a.shape[n_lead:]) if isinstance(a, torch.Tensor)
+            else a for a in args]
+    outs = [fn(*(a[i] if isinstance(a, torch.Tensor) else a for a in flat))
+            for i in range(lead.numel())]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o).reshape(lead + o[0].shape)
+                     for o in zip(*outs))
+    return torch.stack(outs).reshape(lead + outs[0].shape)

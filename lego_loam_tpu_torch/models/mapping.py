@@ -288,14 +288,29 @@ def _fit_block(x: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.cat([x, pad])
 
 
+def refresh_due(map_age: int, map_stale: bool, cfg: PipelineConfig) -> bool:
+    """Whether the next solve re-gathers the local map (the JAX package's
+    refresh cond, on host values)."""
+    return map_age >= cfg.map_refresh_every - 1 or map_stale
+
+
 def mapping_step(state: MappingState, feats: ScanFeatures, odom_pose: Pose,
-                 time, cfg: PipelineConfig, imu_buf=None):
+                 time, cfg: PipelineConfig, imu_buf=None, refresh=None):
     """One mapping solve on the odometry's reference clouds for this sweep
     (less-sharp / less-flat at the sweep end, plus outliers).  Returns
     (new_state, mapped_pose).  With an IMU buffer (models/imu.ImuBuffer),
     the solved pose takes a share of the IMU's roll and pitch before it is
     latched and stored.  The keyframe pool tensors of `state` are updated
-    in place; rebind to the returned state."""
+    in place; rebind to the returned state.
+
+    `refresh` says whether the solve re-gathers the local map: None
+    decides it from the state's map_age / map_stale (:func:`refresh_due`),
+    a bool forces it, and a bool tensor -- one a sequence under
+    torch.func.vmap, where the sequences of a batch may disagree --
+    gathers and keeps the new map where it is True and the cached one
+    elsewhere (the JAX package's cond under vmap).  With a tensor the
+    returned map_age / map_stale are the state's: the caller keeps them
+    per sequence."""
     dev = odom_pose.t.device
     time = torch.full((), float(time), dtype=torch.float32, device=dev)
     T_pred = predict_pose(state, odom_pose)
@@ -308,12 +323,15 @@ def mapping_step(state: MappingState, feats: ScanFeatures, odom_pose: Pose,
         cfg.leaf_scan_surf, cfg.max_scan_surf_ds)
 
     # local-map refresh cadence, decided from host values
-    do_refresh = state.map_age >= cfg.map_refresh_every - 1 or state.map_stale
-    if do_refresh:
-        maps = _gather_local_map(state, T_pred.t, cfg)
+    if refresh is None:
+        refresh = refresh_due(state.map_age, state.map_stale, cfg)
+    cached = (state.map_corner, state.map_corner_valid, state.map_surf,
+              state.map_surf_valid)
+    if isinstance(refresh, torch.Tensor):
+        maps = tuple(torch.where(refresh, new, old) for new, old in
+                     zip(_gather_local_map(state, T_pred.t, cfg), cached))
     else:
-        maps = (state.map_corner, state.map_corner_valid, state.map_surf,
-                state.map_surf_valid)
+        maps = _gather_local_map(state, T_pred.t, cfg) if refresh else cached
     T, _ = scan_to_map(T_pred, corner_pts, corner_ok, surf_pts, surf_ok,
                        *maps, cfg)
     if imu_buf is not None:
@@ -334,9 +352,10 @@ def mapping_step(state: MappingState, feats: ScanFeatures, odom_pose: Pose,
     Z = T_prev.inverse().compose(T)
 
     def ins(arr, val):
-        # predicated single-row update, in place
+        # predicated single-row update, in place (index_put_ batches under
+        # torch.func.vmap; index_copy_ would fall back to a per-sequence loop)
         row = torch.where(insert, val, arr.index_select(0, slot)[0])
-        arr.index_copy_(0, slot, row[None])
+        arr.index_put_((slot,), row[None])
         return arr
 
     new_state = state._replace(
@@ -357,9 +376,10 @@ def mapping_step(state: MappingState, feats: ScanFeatures, odom_pose: Pose,
         aft_mapped=T,
         map_corner=maps[0], map_corner_valid=maps[1],
         map_surf=maps[2], map_surf_valid=maps[3],
-        map_age=0 if do_refresh else state.map_age + 1,
-        map_stale=False,
     )
+    if not isinstance(refresh, torch.Tensor):
+        new_state = new_state._replace(
+            map_age=0 if refresh else state.map_age + 1, map_stale=False)
     return new_state, T
 
 

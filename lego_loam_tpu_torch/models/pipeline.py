@@ -93,6 +93,38 @@ def frontend_step(ostate, xyz, valid, ring, bef_mapped: Pose, aft_mapped: Pose,
     return ostate, feats, opose, rel, fused, stats
 
 
+def scan_step(ostate, mstate, xyz, valid, ring, t: float, cfg: PipelineConfig,
+              did_map: bool, loop_ran: bool, refresh=None, imu_buf=None):
+    """One scan on device tensors, a pure function of the states and the
+    step's host decisions: the front end, the mapping solve if `did_map`
+    (`refresh` as models/mapping.mapping_step takes it), the loop check if
+    `loop_ran`, the re-fuse.  Returns (ostate, mstate, (odom pose, fused
+    pose, the aft_mapped latch after mapping, loop flag, stats)).
+
+    LegoLoamPipeline runs it on one sequence; models/batch.py runs it under
+    torch.func.vmap on B, so it returns tensors only: the host fields of
+    the state (map_age, map_stale, the pending loop flag, the keyframe
+    bound) are the caller's."""
+    t_dev = (torch.full((), t, dtype=torch.float32, device=xyz.device)
+             if imu_buf is not None else None)
+    ostate, feats, opose, rel, fused, stats = frontend_step(
+        ostate, xyz, valid, ring, mstate.bef_mapped, mstate.aft_mapped, t_dev,
+        cfg, cfg.sensor.use_ring, imu_buf=imu_buf)
+    if did_map:
+        mfeats = feats._replace(less_sharp=ostate.ref_corner,
+                                less_flat=ostate.ref_surf)
+        mstate, _ = mp.mapping_step(mstate, mfeats, opose, t, cfg,
+                                    imu_buf=imu_buf, refresh=refresh)
+    latch = mstate.aft_mapped
+    closed = torch.zeros((), dtype=torch.bool, device=xyz.device)
+    if loop_ran:
+        mstate, res = lc.loop_closure_step(mstate, t, cfg)
+        closed = res.closed
+    if did_map or loop_ran:
+        fused = fuse_pose(mstate, opose)
+    return ostate, mstate, (opose, fused, latch, closed, stats)
+
+
 @dataclass
 class FrameResult:
     odom_pose: Pose
@@ -226,42 +258,27 @@ class LegoLoamPipeline:
                 "ring= or use an elevation-math preset (use_ring=False)")
 
     def _step(self, xyz, valid, ring, t: float, imu_buf):
-        """One scan on device tensors: front end, the mapping solve and the
-        loop check on their host cadences, the re-fuse.  Returns (odom
-        pose, fused pose, the aft_mapped latch after mapping, did_map,
-        loop flag, stats)."""
+        """One scan on device tensors: :func:`scan_step` with the mapping
+        and loop cadences from the host frame counter.  Returns (odom
+        pose, fused pose, the aft_mapped latch after mapping, did_map, loop
+        flag, stats)."""
         cfg = self.cfg
-        dev = self.device
-        t_dev = (torch.full((), t, dtype=torch.float32, device=dev)
-                 if imu_buf is not None else None)
-        self.ostate, feats, opose, rel, fused, stats = frontend_step(
-            self.ostate, xyz, valid, ring, self.mstate.bef_mapped,
-            self.mstate.aft_mapped, t_dev, cfg, cfg.sensor.use_ring,
-            imu_buf=imu_buf)
-
         did_map = self.frame % cfg.mapping_process_every == 0
         if did_map:
             self._maybe_compact()
             self.sync_map_stale()
-            mfeats = feats._replace(less_sharp=self.ostate.ref_corner,
-                                    less_flat=self.ostate.ref_surf)
-            self.mstate, _ = mp.mapping_step(self.mstate, mfeats, opose, t,
-                                             cfg, imu_buf=imu_buf)
-            self.n_kf_bound += 1
-        latch = self.mstate.aft_mapped
-
         # the loop-check cadence is independent of the mapping cadence (the
         # reference's 1 Hz thread made deterministic)
-        closed = torch.zeros((), dtype=torch.bool, device=dev)
         loop_ran = (cfg.loop_closure_enabled
                     and self.frame % self.loop_check_every == 0)
+        self.ostate, self.mstate, (opose, fused, latch, closed, stats) = scan_step(
+            self.ostate, self.mstate, xyz, valid, ring, t, cfg, did_map,
+            loop_ran, imu_buf=imu_buf)
+        if did_map:
+            self.n_kf_bound += 1
         if loop_ran:
-            self.mstate, res = lc.loop_closure_step(self.mstate, t, cfg)
-            closed = res.closed
             self._loop_flag = (closed if self._loop_flag is None
                                else self._loop_flag | closed)
-        if did_map or loop_ran:
-            fused = fuse_pose(self.mstate, opose)
         self.frame += 1
         return opose, fused, latch, did_map, closed, stats
 

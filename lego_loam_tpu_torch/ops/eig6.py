@@ -7,7 +7,9 @@ float64 registers, one thread a matrix, P and the ascending eigenvalues
 written back and V never.  torch.linalg.eigh on a CUDA tensor reads
 cuSOLVER's info code back to the host, one host sync a call (5 a scan in
 the odometry, 1 a mapping solve); the kernel makes none.  On a CPU tensor
-it is :func:`degeneracy_projection_plain`, float32 eigh.
+it is :func:`degeneracy_projection_plain`, float32 eigh.  Both go through
+the custom op ``lego::eig6``, whose vmap rule folds a vmapped batch into
+the same launch (kernels/build.py).
 
 The two take the same keep mask wherever every eigenvalue lies further
 from thresh than their rounding gap (float32 LAPACK against float64
@@ -52,11 +54,24 @@ def eig6(H: torch.Tensor, thresh: float):
 eig6.launches = 0
 
 
+@torch.library.custom_op("lego::eig6", mutates_args=())
+def _eig6_op(H: torch.Tensor, thresh: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., 6, 6) float32 -> (P (..., 6, 6), lam (..., 6)): one E1 launch
+    for every matrix on a CUDA tensor, the plain version on a CPU tensor
+    (once a matrix of a vmapped batch)."""
+    if not H.is_cuda:
+        return kb.per_element(degeneracy_projection_plain, H.dim() - 2, H, thresh)
+    P, lam, _ = eig6(H.reshape(-1, 6, 6).contiguous(), thresh)
+    return P.reshape(H.shape), lam.reshape(H.shape[:-1])
+
+
+@_eig6_op.register_vmap
+def _eig6_vmap(info, in_dims, H, thresh):
+    return _eig6_op(*kb.batch_front(info, in_dims, H, thresh)), (0, 0)
+
+
 def degeneracy_projection(H: torch.Tensor, thresh: float):
     """(6, 6) or (B, 6, 6) float32 -> (P, lam ascending) of the same batch
     shape: E1 on a CUDA tensor (no host sync), the plain version on a CPU
-    tensor."""
-    if not H.is_cuda:
-        return degeneracy_projection_plain(H, thresh)
-    P, lam, _ = eig6(H.reshape(-1, 6, 6).contiguous(), thresh)
-    return P.reshape(H.shape), lam.reshape(H.shape[:-1])
+    tensor.  Under torch.func.vmap the batch joins the same launch."""
+    return _eig6_op(H, float(thresh))

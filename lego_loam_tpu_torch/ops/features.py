@@ -13,6 +13,7 @@ prep and pick loop below.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 
@@ -165,6 +166,14 @@ def pick_inputs(packed: SegmentedScan, cfg: PipelineConfig):
             ep_all, ok_all)
 
 
+# the cfg scalars K2 reads, in the order of LegoFeatureParams (the last,
+# use_median, is edge_prominence > 0)
+_FLOAT_PARAMS = ("edge_threshold", "edge_prominence", "surf_threshold",
+                 "occlusion_depth_gap", "parallel_beam_frac")
+_INT_PARAMS = ("occlusion_col_diff", "sections_total", "edge_feature_num_less",
+               "edge_feature_num", "surf_feature_num", "use_median")
+
+
 def label_features_plain(packed: SegmentedScan, cfg: PipelineConfig):
     """K2's plain version: the prep of :func:`pick_inputs`, then the pick
     loop :func:`pick_features_plain`."""
@@ -176,31 +185,22 @@ def label_features_plain(packed: SegmentedScan, cfg: PipelineConfig):
 class _Params(ctypes.Structure):
     """The cfg scalars of ``csrc/pick_features.cu``'s LegoFeatureParams."""
 
-    _fields_ = ([(f, ctypes.c_float) for f in (
-        "edge_threshold", "edge_prominence", "surf_threshold",
-        "occlusion_depth_gap", "parallel_beam_frac")]
-        + [(f, ctypes.c_int) for f in (
-            "occlusion_col_diff", "n_sectors", "n_corner", "n_sharp",
-            "n_surf", "use_median")])
+    _fields_ = ([(f, ctypes.c_float) for f in _FLOAT_PARAMS]
+                + [(f, ctypes.c_int) for f in _INT_PARAMS])
 
 
 _PARAMS: dict = {}
 
 
-def _params(cfg: PipelineConfig) -> int:
-    """The address of the kernel's params struct for a config, built once
-    per config object (looked up by identity: hashing a config costs more
-    than the launch)."""
-    hit = _PARAMS.get(id(cfg))
-    if hit is None or hit[0] is not cfg:
-        p = _Params(cfg.edge_threshold, cfg.edge_prominence,
-                    cfg.surf_threshold, cfg.occlusion_depth_gap,
-                    cfg.parallel_beam_frac, cfg.occlusion_col_diff,
-                    cfg.sections_total, cfg.edge_feature_num_less,
-                    cfg.edge_feature_num, cfg.surf_feature_num,
-                    int(cfg.edge_prominence > 0.0))
-        hit = _PARAMS[id(cfg)] = (cfg, p, ctypes.addressof(p))
-    return hit[2]
+def _params(fparams: list, iparams: list) -> int:
+    """The address of the kernel's params struct for these scalars, built
+    once per distinct set."""
+    key = (*fparams, *iparams)
+    hit = _PARAMS.get(key)
+    if hit is None:
+        p = _Params(*key)
+        hit = _PARAMS[key] = (p, ctypes.addressof(p))
+    return hit[1]
 
 
 def _cells_per_lane(W: int) -> int:
@@ -235,27 +235,63 @@ def label_features(packed: SegmentedScan, cfg: PipelineConfig):
     the final picked mask (sector_parallel pick order).  A CUDA scan
     launches K2 (``csrc/pick_features.cu``, the whole step in one launch,
     from rng / valid / col / ground / count); a CPU scan runs
-    :func:`label_features_plain`."""
+    :func:`label_features_plain`.  The packed fields may carry leading
+    batch dimensions; under torch.func.vmap the batch goes into the same
+    launch (one block a ring of every scan)."""
     if not cfg.sector_parallel:
         raise NotImplementedError(
             "the port implements the sector_parallel pick order only")
-    rng = packed.rng
-    if not rng.is_cuda:
-        return label_features_plain(packed, cfg)
-    R, W = rng.shape
+    return _label_features_op(
+        packed.rng, packed.valid, packed.col, packed.ground, packed.count,
+        [float(getattr(cfg, f)) for f in _FLOAT_PARAMS],
+        [int(getattr(cfg, f)) for f in _INT_PARAMS[:-1]]
+        + [int(cfg.edge_prominence > 0.0)])
+
+
+@torch.library.custom_op("lego::label_features", mutates_args=())
+def _label_features_op(rng: torch.Tensor, valid: torch.Tensor,
+                       col: torch.Tensor, ground: torch.Tensor,
+                       count: torch.Tensor, fparams: list[float],
+                       iparams: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+    if rng.is_cuda:
+        return _launch_label_features(rng, valid, col, ground, count, fparams,
+                                      iparams)
+    pcfg = SimpleNamespace(**dict(zip(_FLOAT_PARAMS + _INT_PARAMS,
+                                      fparams + iparams)))
+
+    def plain(rng, valid, col, ground, count):
+        packed = SegmentedScan(None, rng, col, None, ground, valid, count,
+                               None, None)
+        return label_features_plain(packed, pcfg)
+
+    return kb.per_element(plain, rng.dim() - 2, rng, valid, col, ground, count)
+
+
+@_label_features_op.register_vmap
+def _label_features_vmap(info, in_dims, *args):
+    args = [a.contiguous() if isinstance(a, torch.Tensor) else a
+            for a in kb.batch_front(info, in_dims, *args)]
+    return _label_features_op(*args), (0, 0)
+
+
+def _launch_label_features(rng, valid, col, ground, count, fparams, iparams):
+    """K2 over every ring of a (..., R, W) batch: rings are independent, so
+    a batch is R' = B x R rings of one launch."""
+    shape = tuple(rng.shape)
+    W = shape[-1]
     dev = rng.device
-    _check_k2_fits(cfg.sections_total, W)
-    kb.require(rng, "rng", torch.float32, (R, W), dev)
-    kb.require(packed.valid, "valid", torch.bool, (R, W), dev)
-    kb.require(packed.col, "col", torch.int32, (R, W), dev)
-    kb.require(packed.ground, "ground", torch.bool, (R, W), dev)
-    kb.require(packed.count, "count", torch.int32, (R,), dev)
-    labels = torch.empty((R, W), dtype=torch.int32, device=dev)
-    picked = torch.empty((R, W), dtype=torch.bool, device=dev)
+    _check_k2_fits(iparams[_INT_PARAMS.index("sections_total")], W)
+    kb.require(rng, "rng", torch.float32, shape, dev)
+    kb.require(valid, "valid", torch.bool, shape, dev)
+    kb.require(col, "col", torch.int32, shape, dev)
+    kb.require(ground, "ground", torch.bool, shape, dev)
+    kb.require(count, "count", torch.int32, shape[:-1], dev)
+    labels = torch.empty(shape, dtype=torch.int32, device=dev)
+    picked = torch.empty(shape, dtype=torch.bool, device=dev)
     kb.check(kb.library().lego_label_features(
-        rng.data_ptr(), packed.valid.data_ptr(), packed.col.data_ptr(),
-        packed.ground.data_ptr(), packed.count.data_ptr(), labels.data_ptr(),
-        picked.data_ptr(), R, W, _params(cfg), kb.stream_of(rng)),
+        rng.data_ptr(), valid.data_ptr(), col.data_ptr(), ground.data_ptr(),
+        count.data_ptr(), labels.data_ptr(), picked.data_ptr(),
+        count.numel(), W, _params(fparams, iparams), kb.stream_of(rng)),
         "label_features")
     label_features.launches += 1
     return labels, picked

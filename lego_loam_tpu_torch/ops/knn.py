@@ -66,14 +66,14 @@ def knn_plain(query, ref, ref_valid, k: int, query_tile: int = 0):
     return torch.cat(idx), torch.cat(d2)
 
 
-def knn_splits(Q: int, N: int) -> int:
-    """Reference splits S of K3's grid for Q queries and N references: the
-    most that keep (query tiles x S) <= TARGET_BLOCKS, one wave of blocks
-    that all run at once, with at least MIN_SPLIT references a split (so
-    S = 1 for N < 2 * MIN_SPLIT) and none empty.  Fewer splits mean fewer
-    per-split lists to fill and merge.  The kernel's splits are
-    ceil(N / S) references long."""
-    tiles = -(-Q // QUERY_TILE)
+def knn_splits(Q: int, N: int, B: int = 1) -> int:
+    """Reference splits S of K3's grid for a batch of B searches of Q
+    queries and N references: the most that keep (query tiles x S x B) <=
+    TARGET_BLOCKS, one wave of blocks that all run at once, with at least
+    MIN_SPLIT references a split (so S = 1 for N < 2 * MIN_SPLIT) and none
+    empty.  Fewer splits mean fewer per-split lists to fill and merge.  The
+    kernel's splits are ceil(N / S) references long."""
+    tiles = -(-Q // QUERY_TILE) * B
     s = max(1, min(TARGET_BLOCKS // tiles, N // MIN_SPLIT))
     return -(-N // -(-N // s))
 
@@ -81,29 +81,53 @@ def knn_splits(Q: int, N: int) -> int:
 def knn(query, ref, ref_valid, k: int, query_tile: int = 0):
     """k nearest neighbours per query point (K3 on CUDA tensors).
 
-    query (Q, 3) f32, ref (N, 3) f32, ref_valid (N,) bool, 1 <= k <= 8.
-    Returns (idx (Q, k) int32, d2 (Q, k) f32), ascending; invalid refs rank
-    last with d2 ~ 1e30.  CPU tensors run :func:`knn_plain` (query_tile
-    bounds its memory; the kernel needs no tiling)."""
-    if not query.is_cuda:
-        return knn_plain(query, ref, ref_valid, k, query_tile)
+    query (..., Q, 3) f32, ref (..., N, 3) f32, ref_valid (..., N) bool,
+    1 <= k <= 8; leading dimensions are independent searches.  Returns
+    (idx (..., Q, k) int32, d2 (..., Q, k) f32), ascending; invalid refs
+    rank last with d2 ~ 1e30.  CPU tensors run :func:`knn_plain` a search
+    at a time (query_tile bounds its memory; the kernel needs no tiling).
+    Under torch.func.vmap the batch goes into the same launch."""
+    return _knn_op(query, ref, ref_valid, int(k), int(query_tile))
+
+
+@torch.library.custom_op("lego::knn", mutates_args=())
+def _knn_op(query: torch.Tensor, ref: torch.Tensor, ref_valid: torch.Tensor,
+            k: int, query_tile: int) -> tuple[torch.Tensor, torch.Tensor]:
+    if query.is_cuda:
+        return _launch_knn(query, ref, ref_valid, k)
+    return kb.per_element(knn_plain, query.dim() - 2, query, ref, ref_valid, k,
+                          query_tile)
+
+
+@_knn_op.register_vmap
+def _knn_vmap(info, in_dims, *args):
+    args = [a.contiguous() if isinstance(a, torch.Tensor) else a
+            for a in kb.batch_front(info, in_dims, *args)]
+    return _knn_op(*args), (0, 0)
+
+
+def _launch_knn(query, ref, ref_valid, k: int):
+    """K3 on a (..., Q, 3) x (..., N, 3) batch: one launch of its split pass
+    (and one of its merge pass) for every search of the batch."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"knn kernel supports 1 <= k <= {MAX_K}, got {k}")
-    Q, N = query.shape[0], ref.shape[0]
+    Q, N = query.shape[-2], ref.shape[-2]
+    lead = tuple(query.shape[:-2])
     dev = query.device
     if Q == 0 or N == 0:
         raise ValueError(f"knn kernel needs Q, N >= 1, got {Q}, {N}")
-    kb.require(query, "query", torch.float32, (Q, 3), dev)
-    kb.require(ref, "ref", torch.float32, (N, 3), dev)
-    kb.require(ref_valid, "ref_valid", torch.bool, (N,), dev)
-    S = knn_splits(Q, N)
+    kb.require(query, "query", torch.float32, lead + (Q, 3), dev)
+    kb.require(ref, "ref", torch.float32, lead + (N, 3), dev)
+    kb.require(ref_valid, "ref_valid", torch.bool, lead + (N,), dev)
+    B = query.numel() // (3 * Q)
+    S = knn_splits(Q, N, B)
     # per-split (rank, index) lists of the first pass, merged by the second
-    scratch = (torch.empty((2, S, k, Q), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((2, B, S, k, Q), dtype=torch.float32, device=dev)
                if S > 1 else None)
-    idx = torch.empty((Q, k), dtype=torch.int32, device=dev)
-    d2 = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    idx = torch.empty(lead + (Q, k), dtype=torch.int32, device=dev)
+    d2 = torch.empty(lead + (Q, k), dtype=torch.float32, device=dev)
     kb.check(kb.library().lego_knn(
-        query.data_ptr(), ref.data_ptr(), ref_valid.data_ptr(), Q, N, k, S,
+        query.data_ptr(), ref.data_ptr(), ref_valid.data_ptr(), B, Q, N, k, S,
         None if scratch is None else scratch.data_ptr(), idx.data_ptr(),
         d2.data_ptr(), kb.stream_of(query)), "knn")
     knn.launches += 1

@@ -69,11 +69,12 @@ def project_scan(
     lead = lead & (cell < R * H)
     slot = torch.where(lead, cell, R * H)           # losers -> dump slot
 
+    # out of place: under torch.func.vmap (models/batch.py) the empty grids
+    # are not batched, the scattered values are
     rng_grid = torch.full((R * H + 1,), INVALID_RANGE, dtype=torch.float32,
-                          device=dev)
-    rng_grid.scatter_(0, slot, rng_k[order])
-    xyz_grid = torch.zeros((R * H + 1, 3), dtype=torch.float32, device=dev)
-    xyz_grid.index_copy_(0, slot, xyz[order])
+                          device=dev).scatter(0, slot, rng_k[order])
+    xyz_grid = torch.zeros((R * H + 1, 3), dtype=torch.float32,
+                           device=dev).index_put((slot,), xyz[order])
     rng_grid = rng_grid[: R * H].reshape(R, H)
     xyz_grid = xyz_grid[: R * H].reshape(R, H, 3)
     valid_grid = rng_grid < INVALID_RANGE

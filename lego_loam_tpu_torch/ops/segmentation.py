@@ -125,21 +125,48 @@ def propagate_labels(labels0, conn_left, edge_h, conn_up, conn_down,
                      max_sweeps: int = 64):
     """Label propagation to the min-index fixpoint (K1).
 
-    labels0 (R, H) int32 (p for a segmentable pixel, >= R*H otherwise);
-    conn_left / edge_h (= conn_right) / conn_up / conn_down (R, H) bool.
-    CUDA tensors launch ``csrc/label_prop.cu`` (one cooperative launch of
-    8 x 64-pixel tiles, which always reaches the fixpoint: ``max_sweeps``
-    binds only the plain version, see the note in the source); CPU tensors
-    run :func:`propagate_labels_plain`."""
-    if not labels0.is_cuda:
-        return propagate_labels_plain(labels0, conn_left, edge_h, conn_up,
-                                      conn_down, max_sweeps)
-    R, H = labels0.shape
+    labels0 (..., R, H) int32 (p for a segmentable pixel, >= R*H otherwise);
+    conn_left / edge_h (= conn_right) / conn_up / conn_down (..., R, H)
+    bool; leading dimensions are independent scans.  CUDA tensors launch
+    ``csrc/label_prop.cu`` (cooperative launches of 8 x 64-pixel tiles,
+    which always reach the fixpoint: ``max_sweeps`` binds only the plain
+    version, see the note in the source); CPU tensors run
+    :func:`propagate_labels_plain` a scan at a time.  Under torch.func.vmap
+    the batch goes into the same launch."""
+    return _label_prop_op(labels0, conn_left, edge_h, conn_up, conn_down,
+                          int(max_sweeps))
+
+
+@torch.library.custom_op("lego::label_prop", mutates_args=())
+def _label_prop_op(labels0: torch.Tensor, conn_left: torch.Tensor,
+                   conn_right: torch.Tensor, conn_up: torch.Tensor,
+                   conn_down: torch.Tensor, max_sweeps: int) -> torch.Tensor:
+    if labels0.is_cuda:
+        return _launch_label_prop(labels0, conn_left, conn_right, conn_up,
+                                  conn_down)
+    out = kb.per_element(propagate_labels_plain, labels0.dim() - 2, labels0,
+                         conn_left, conn_right, conn_up, conn_down, max_sweeps)
+    return out.clone() if out is labels0 else out    # max_sweeps = 0
+
+
+@_label_prop_op.register_vmap
+def _label_prop_vmap(info, in_dims, *args):
+    args = [a.contiguous() if isinstance(a, torch.Tensor) else a
+            for a in kb.batch_front(info, in_dims, *args)]
+    return _label_prop_op(*args), 0
+
+
+def _launch_label_prop(labels0, conn_left, conn_right, conn_up, conn_down):
+    """K1 on every scan of a (..., R, H) batch: the fewest cooperative
+    launches whose blocks the card holds at once (one for a VLP-16 batch
+    of up to 8 and more scans)."""
+    R, H = labels0.shape[-2:]
+    shape = tuple(labels0.shape)
     dev = labels0.device
-    kb.require(labels0, "labels0", torch.int32, (R, H), dev)
-    for name, m in (("conn_left", conn_left), ("edge_h", edge_h),
+    kb.require(labels0, "labels0", torch.int32, shape, dev)
+    for name, m in (("conn_left", conn_left), ("conn_right", conn_right),
                     ("conn_up", conn_up), ("conn_down", conn_down)):
-        kb.require(m, name, torch.bool, (R, H), dev)
+        kb.require(m, name, torch.bool, shape, dev)
     lib = kb.library()
     blocks = lib.lego_label_prop_grid(R, H)
     fits = _coresident_blocks(lib, dev)
@@ -147,13 +174,25 @@ def propagate_labels(labels0, conn_left, edge_h, conn_up, conn_down,
         raise ValueError(
             f"label_prop: a {R}x{H} grid needs {blocks} co-resident blocks, "
             f"{torch.cuda.get_device_name(dev)} holds {fits}")
-    out = torch.empty((R, H), dtype=torch.int32, device=dev)
-    kb.check(lib.lego_label_prop(
-        labels0.data_ptr(), conn_left.data_ptr(), edge_h.data_ptr(),
-        conn_up.data_ptr(), conn_down.data_ptr(), out.data_ptr(), R, H,
-        kb.stream_of(labels0)), "label_prop")
-    propagate_labels.launches += 1
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    B = labels0.numel() // (R * H)
+    per = fits // blocks                    # scans a launch
+    stream = kb.stream_of(labels0)
+    for b0 in range(0, B, per):
+        px = b0 * R * H                     # int32 labels, byte masks
+        kb.check(lib.lego_label_prop(
+            labels0.data_ptr() + 4 * px, conn_left.data_ptr() + px,
+            conn_right.data_ptr() + px, conn_up.data_ptr() + px,
+            conn_down.data_ptr() + px, out.data_ptr() + 4 * px, R, H,
+            min(per, B - b0), stream), "label_prop")
+        propagate_labels.launches += 1
     return out
+
+
+def label_prop_launches(B: int, R: int, H: int, dev) -> int:
+    """K1 launches a batch of B scans of R x H takes on `dev`."""
+    lib = kb.library()
+    return -(-B // (_coresident_blocks(lib, dev) // lib.lego_label_prop_grid(R, H)))
 
 
 propagate_labels.launches = 0
@@ -198,13 +237,14 @@ def _cluster_stats_scatter(labels, seg, R, H, big, cfg):
     dev = labels.device
     flat = torch.where(seg, labels, big).reshape(-1).to(torch.int64)
     ones = seg.reshape(-1).to(torch.int32)
-    counts = torch.zeros(R * H + 1, dtype=torch.int32, device=dev)
-    counts.scatter_add_(0, flat, ones)
+    # out of place: under torch.func.vmap the empty slots are not batched
+    counts = torch.zeros(R * H + 1, dtype=torch.int32, device=dev).scatter_add(
+        0, flat, ones)
     rows = torch.arange(R, dtype=torch.int32, device=dev)[:, None].expand(R, H).reshape(-1)
-    min_row = torch.full((R * H + 1,), R, dtype=torch.int32, device=dev)
-    min_row.scatter_reduce_(0, flat, torch.where(ones == 1, rows, R), "amin")
-    max_row = torch.full((R * H + 1,), -1, dtype=torch.int32, device=dev)
-    max_row.scatter_reduce_(0, flat, torch.where(ones == 1, rows, -1), "amax")
+    min_row = torch.full((R * H + 1,), R, dtype=torch.int32, device=dev).scatter_reduce(
+        0, flat, torch.where(ones == 1, rows, R), "amin")
+    max_row = torch.full((R * H + 1,), -1, dtype=torch.int32, device=dev).scatter_reduce(
+        0, flat, torch.where(ones == 1, rows, -1), "amax")
     span = max_row - min_row + 1
     good = (counts >= cfg.segment_big_cluster) | (
         (counts >= cfg.segment_valid_point_num)

@@ -93,10 +93,11 @@ def voxel_downsample(xyz: torch.Tensor, valid: torch.Tensor, leaf: float,
     flat_gid = (gid + torch.arange(B, device=dev)[:, None] * n).reshape(-1)
 
     svf = sv.to(torch.float32).reshape(-1)
-    counts = torch.zeros(B * n, dtype=torch.float32, device=dev)
-    counts.index_add_(0, flat_gid, svf)
-    sums = torch.zeros(B * n, 3, dtype=torch.float32, device=dev)
-    sums.index_add_(0, flat_gid, sxyz.reshape(-1, 3) * svf[:, None])
+    # out of place: under torch.func.vmap the zero sums are not batched
+    counts = torch.zeros(B * n, dtype=torch.float32, device=dev).index_add(
+        0, flat_gid, svf)
+    sums = torch.zeros(B * n, 3, dtype=torch.float32, device=dev).index_add(
+        0, flat_gid, sxyz.reshape(-1, 3) * svf[:, None])
     denom = torch.clamp(counts, min=1.0)[:, None]
     centroids = (sums / denom).reshape(B, n, 3)
 
@@ -111,8 +112,8 @@ def voxel_downsample(xyz: torch.Tensor, valid: torch.Tensor, leaf: float,
         return xyz_out, valid_out
     K = aux.shape[-1]
     saux = torch.take_along_dim(aux.reshape(B, n, K), order[..., None], dim=1)
-    aux_sums = torch.zeros(B * n, K, dtype=torch.float32, device=dev)
-    aux_sums.index_add_(0, flat_gid, saux.reshape(-1, K) * svf[:, None])
+    aux_sums = torch.zeros(B * n, K, dtype=torch.float32, device=dev).index_add(
+        0, flat_gid, saux.reshape(-1, K) * svf[:, None])
     aux_out = (aux_sums / denom).reshape(B, n, K)[:, pick]
     aux_out = torch.where(valid_out.reshape(B, out_cap)[..., None], aux_out, 0.0)
     return xyz_out, aux_out.reshape(batch + (out_cap, K)), valid_out

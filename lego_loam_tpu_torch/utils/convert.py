@@ -6,6 +6,11 @@ class name and fields match one of the port's state types -- OdometryState,
 MappingState, ImuBuffer, ScanFeatures, FeatureCloud, Pose -- converts field
 by field.  MappingState's map_age / map_stale and ImuBuffer's ptr / count
 are host values in the port.
+
+A stacked state (a leading batch axis on every leaf, as the JAX package's
+BatchPipeline holds it and models/batch.py holds the port's) converts the
+same way: its host fields become one host value a sequence, a tuple, and
+come back as one (B,) array.
 """
 
 from __future__ import annotations
@@ -43,13 +48,20 @@ def state_from_numpy(x, device):
         vals = []
         for f, v in zip(x._fields, x):
             host = _HOST.get((name, f))
-            vals.append(host(np.asarray(v)) if host else state_from_numpy(v, device))
+            vals.append(_host_value(host, v) if host else state_from_numpy(v, device))
         return cls(*vals)
     return torch.as_tensor(np.array(x, copy=True), device=device)
 
 
+def _host_value(host, v):
+    """A host field: one value, or a tuple of one a sequence of a stack."""
+    a = np.asarray(v)
+    return host(a) if a.ndim == 0 else tuple(host(e) for e in a)
+
+
 def state_to_numpy(x):
-    """The reverse: the same NamedTuple type with numpy leaves."""
+    """The reverse: the same NamedTuple type with numpy leaves (a stacked
+    state's per-sequence host values as one array)."""
     if x is None:
         return None
     if _is_namedtuple(x):

@@ -35,6 +35,9 @@ IMU_SLICE = ("models.imu", "io.checkpoint", "io.kitti", "io.rosbag",
 # debug dumps and the pipeline that drives them
 CHUNK_SLICE = ("ops.eig6", "io.pcd", "native", "native.fast_io", "utils.debug",
                "models.pipeline")
+# the fleet-batching slice's: the batch pipeline and the kernel build, whose
+# custom ops' vmap rules it reaches
+BATCH_SLICE = ("models.batch", "kernels.build")
 
 
 def test_port_imports_without_jax():
@@ -42,8 +45,9 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 29     # every module of the port
-    assert {f"lego_loam_tpu_torch.{m}" for m in IMU_SLICE + CHUNK_SLICE} <= names
+    assert len(names) >= 37     # every module of the port
+    assert {f"lego_loam_tpu_torch.{m}"
+            for m in IMU_SLICE + CHUNK_SLICE + BATCH_SLICE} <= names
 
 
 def test_shared_test_courses_import_without_jax():

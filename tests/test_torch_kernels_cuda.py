@@ -24,6 +24,14 @@ blocks, k = 1 and 8, sentinel slots, and a duplicate point across splits
 degeneracy projection) on tests/torch_courses.eig6_spectra at both
 pipeline thresholds, one matrix a call and all in one batch: P within
 1e-5, eigenvalues within 1e-5 of |H|, the keep mask equal, no host sync.
+Each kernel's batched launch, as fleet batching (models/batch.py) makes it
+through its custom op's vmap rule, is held against its plain version a
+sequence at a time: K1 on batches of VLP-16 (8 scans, one cooperative
+launch), HDL-64E (8) and VLS-128 (3) scans, the last two beyond one
+launch's co-resident blocks (the fewest launches that fit); K2 on 8
+VLP-16 and 3 HDL-64E scans in one launch; K3 on 8 searches at the mapping
+and loop shapes in one launch, each equal to its own launch bit for bit;
+E1 on 4 stacks of spectra in one launch without a host sync.
 chip_smoke.py runs the same checks at the main path's full shapes.
 """
 
@@ -282,3 +290,102 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         eig6.eig6(torch.zeros((2, 5, 5), device=dev), 10.0)
     assert eig6.eig6.launches == n
+
+
+# ------------------------------------------- batched launches (vmap rules)
+
+def _preset_images(dev, preset, B):
+    """B synthetic scans of a preset from B poses of world seed 5 (HDL-64E
+    as chip_smoke.py's path: rows from elevation math)."""
+    cfg = config_for(preset, deskew=False)
+    ims = []
+    for b in range(B):
+        xyz, valid, ring = syn.raycast(syn.default_world(5), np.eye(3),
+                                       np.array([2.0 - 0.7 * b, 1.0, 1.7]),
+                                       cfg.sensor, noise=0.01,
+                                       rng=np.random.default_rng(b))
+        if cfg.sensor.use_ring:
+            ring = torch.as_tensor(ring, device=dev)
+        else:
+            xyz, ring = mid_row(xyz, cfg.sensor), None
+        ims.append(project_scan(torch.as_tensor(xyz, device=dev),
+                                torch.as_tensor(valid, device=dev), cfg, ring))
+    return cfg, ims
+
+
+@pytest.mark.parametrize("preset,B", [("vlp16", 8), ("hdl64e", 8), ("vls128", 3)])
+def test_label_prop_batched_launches(dev, preset, B):
+    """K1 under torch.func.vmap: the fewest cooperative launches whose
+    blocks are co-resident (one a VLP-16 batch of 8; more than one for
+    HDL-64E at 8 and VLS-128 at 3, beyond one launch's blocks), each scan
+    equal to the plain version."""
+    cfg, ims = _preset_images(dev, preset, B)
+    per = [segmentation.label_inputs(*segmentation.build_edges(
+        im, mark_ground(im, cfg), cfg)) for im in ims]
+    R, H = cfg.sensor.n_scan, cfg.sensor.horizon_scan
+    want = segmentation.label_prop_launches(B, R, H, dev)
+    assert (want > 1) == (preset != "vlp16")
+    n = segmentation.propagate_labels.launches
+    got = torch.func.vmap(segmentation.propagate_labels)(
+        *(torch.stack(a) for a in zip(*per)))
+    assert segmentation.propagate_labels.launches == n + want
+    for b in range(B):
+        assert torch.equal(got[b], segmentation.propagate_labels_plain(
+            *per[b], cfg.label_prop_max_sweeps)), b
+
+
+@pytest.mark.parametrize("preset,B", [("vlp16", 8), ("hdl64e", 3)])
+def test_label_features_batched_launch(dev, preset, B):
+    """K2 under torch.func.vmap: one launch of B x R rings, each scan bit
+    for bit the plain version's."""
+    cfg, ims = _preset_images(dev, preset, B)
+    packed = [segment_scan(im, cfg)[0] for im in ims]
+    stacked = type(packed[0])(*(torch.stack(v) for v in zip(*packed)))
+    n = features.label_features.launches
+    lab, pick = torch.func.vmap(lambda p: features.label_features(p, cfg))(stacked)
+    assert features.label_features.launches == n + 1
+    for b, p in enumerate(packed):
+        lab_p, pick_p = features.label_features_plain(p, cfg)
+        assert torch.equal(lab[b], lab_p) and torch.equal(pick[b], pick_p), b
+
+
+@pytest.mark.parametrize("q_n,r_n,k", [(4096, 32768, 5), (1024, 8192, 5),
+                                       (2560, 32768, 1), (300, 200, 5)])
+def test_knn_batched_launch(dev, q_n, r_n, k):
+    """K3 under torch.func.vmap, B = 8 searches (the splits chosen for the
+    batch, S = 1 for the short reference set): one launch, each search
+    equal to its own launch bit for bit and to the plain version to
+    rtol 1e-4 / atol 1e-3 on distances."""
+    B = 8
+    rng = np.random.default_rng(q_n + k)
+    q = torch.as_tensor((rng.standard_normal((B, q_n, 3)) * 20).astype(np.float32),
+                        device=dev)
+    r = torch.as_tensor((rng.standard_normal((B, r_n, 3)) * 20).astype(np.float32),
+                        device=dev)
+    valid = torch.as_tensor(rng.random((B, r_n)) > 0.2, device=dev)
+    n = knn.knn.launches
+    idx, d2 = torch.func.vmap(lambda a, b, c: knn.knn(a, b, c, k))(q, r, valid)
+    assert knn.knn.launches == n + 1
+    for b in range(B):
+        i1, d1 = knn.knn(q[b], r[b], valid[b], k)
+        assert torch.equal(idx[b], i1) and torch.equal(d2[b], d1), b
+        _, pd2 = knn.knn_plain(q[b], r[b], valid[b], k)
+        torch.testing.assert_close(d2[b], pd2, rtol=1e-4, atol=1e-3)
+
+
+def test_eig6_batched_launch(dev):
+    """E1 under torch.func.vmap: one launch for every matrix of the batch,
+    no host sync, each P equal to its own launch's."""
+    Hs = [H for t in (10.0, 100.0) for _, H in eig6_spectra(t, seed=3)]
+    n_per = len(Hs) // 4
+    H = torch.as_tensor(np.stack(Hs[:4 * n_per]), device=dev).reshape(4, n_per, 6, 6)
+    n = eig6.eig6.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        P, lam = torch.func.vmap(lambda h: eig6.degeneracy_projection(h, 10.0))(H)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert eig6.eig6.launches == n + 1
+    for b in range(4):
+        P1, lam1 = eig6.degeneracy_projection(H[b], 10.0)
+        assert torch.equal(P[b], P1) and torch.equal(lam[b], lam1), b

@@ -9,6 +9,8 @@ same configs over the same seeded synthetic scans.
     LOOP_COURSE_KNOBS are the course's own; loop_course() is its
     out-and-back course (out along x, back 0.3 m to the side), with its
     scan stamps, or a shorter one (LOOP_SHORT_OUT scans out).
+  * the fleet: fleet_course(sensor, b) is sequence b of chip_smoke.py's
+    fleet phase (circles of growing radius and arc in world seed 0).
   * IMU: bench.py's fast-yaw de-skew course (fast_yaw_course,
     fast_yaw_imu), tests/test_imu_deskew.py's in-sweep profiles and truth
     buffers (accel_profile, truth_buffer), bench.py's aligned ATE
@@ -55,6 +57,22 @@ def slice_course(sensor, n: int = SLICE_SCANS):
     poses = syn.circle_trajectory(12, radius=8.0, arc=0.35 * np.pi)[:n]
     scans = [syn.raycast(world, R, t, sensor, noise=0.01,
                          rng=np.random.default_rng(k))
+             for k, (R, t) in enumerate(poses)]
+    return poses, scans
+
+
+def fleet_course(sensor, b: int, n: int = 30, radius_step: float = 0.5):
+    """(poses, scans) of fleet sequence b (chip_smoke.py's fleet phase,
+    tests/fleet_gaps.py): circle_trajectory(n, radius=12 + radius_step b,
+    arc=(0.35 + 0.02 b) pi) in default_world(0), 1 cm range noise (seed
+    1000 b + index).  Sequence 0 is chip_smoke.py's slice course.  With
+    radius_step 1, sequence 6 runs an 18 m circle on which process_scan
+    loses track from scan 21 on."""
+    world = syn.default_world(seed=0)
+    poses = syn.circle_trajectory(n, radius=12.0 + radius_step * b,
+                                  arc=(0.35 + 0.02 * b) * np.pi)
+    scans = [syn.raycast(world, R, t, sensor, noise=0.01,
+                         rng=np.random.default_rng(1000 * b + k))
              for k, (R, t) in enumerate(poses)]
     return poses, scans
 
