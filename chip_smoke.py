@@ -34,7 +34,15 @@ Phases (any failure exits non-zero before the result lines):
      at both thresholds: P within 1e-5, eigenvalues within 1e-5 of |H|,
      equal keep masks (a flip is allowed, and counted, only for an
      eigenvalue within that rounding of the threshold); timed on one 6x6
-     beside torch.linalg.eigh + the projection (library_ms);
+     beside torch.linalg.eigh + the projection (library_ms).  Then the
+     reference-faithful configuration's forms (FAITHFUL below): K2 in the
+     sequential order (sector_parallel=False) bit-equal to its plain
+     version on the VLP-16 check scans, the HDL-64E path's first scan and
+     one scan of each preset, on 8 VLP-16 scans in one vmapped launch, and
+     on tests/test_features.py's scan equal to the NumPy oracle of the C++
+     reference's order (oracle_extract's labels); E1 at 3x3 on the H of
+     the two-step odometry's phases over 7 scans and on seeded 3x3
+     spectra, held and timed as at 6x6;
   4. the slice: LegoLoamPipeline(config_for("vlp16", deskew=False), "cuda")
      at the full default capacities (max_keyframes=4096) over 30 scans of a
      circle course with 1 cm range noise; asserts that all four kernels
@@ -56,6 +64,17 @@ Phases (any failure exits non-zero before the result lines):
      the native reader, built from native/fast_io.cpp into build/native/,
      must be the one in use, read_bin of a real scan written as a KITTI
      .bin byte-equal to it and pad_scan_native equal to pad_scan;
+  4b. the reference-faithful configuration, FAITHFUL =
+     config_for("vlp16", deskew=False, nn_exact=True, sector_parallel=False,
+     odom_class_gate=False, edge_prominence=0.0, odom_mode="two_step",
+     odom_surf_fit="tri") (tests/torch_courses.FAITHFUL) at the default
+     capacities over the slice's 30 scans: scans/s, stage ms, peak memory;
+     fails unless every kernel launched, K2 in the sequential order once a
+     scan and E1 at 3x3 ten times a scan (2 phases x 5 rounds), 1 host
+     sync a scan with collect_stats and 0 without, torch.linalg.eigh never
+     called, the ATE under 0.15 m; then the course in chunks of 10
+     without stats: 0 host syncs a chunk, poses within 1 mm / 0.01 deg of
+     process_scan;
   5. the HDL-64E path (KITTI's sensor): config_for("hdl64e", deskew=False)
      at its default, ring-scaled capacities, 9 scans (3 mapping solves) of
      tests/test_hdl64e.py's course with 2 cm range noise, each point moved
@@ -106,7 +125,16 @@ Phases (any failure exits non-zero before the result lines):
      packed stats or loop_closed differ; prints the largest gaps; and a
      chunk arm: SMALL over its 6 scans through process_chunk (chunks of 3)
      on the card against process_scan on the CPU, at the same bounds with
-     equal stats and did_map;
+     equal stats and did_map; and SMALL with FAITHFUL's knobs over the
+     6-scan course, at the same bounds;
+  8b. the C++ reference's NumPy oracle (tests/oracle_pipeline.py, the
+     reference's sequential picks, two-step LM and 3-point planes) over
+     tests/test_oracle_pipeline.py's 15-scan course against the port on
+     the card, in that test's config and in it with odom_mode="two_step":
+     that test's bounds (oracle ATE < 0.10 m, port < 0.08 m, port against
+     oracle < 0.10 m, keyframe counts within 1), except that the
+     two-step port's ATE is held to 0.10 m (ROADMAP C12: the JAX
+     package's two-step lands 0.093 m on that course);
   9. fleet batching at full width (models/batch.py, fleet_phase):
      config_for("vlp16", deskew=False) at the default capacities, 8
      sequences of 30 scans (sequence b: circle_trajectory(30, radius=12 +
@@ -136,8 +164,9 @@ Phases (any failure exits non-zero before the result lines):
      device events a scan, device busy ms a scan and the device's idle
      share; the same over one steady chunk of 10 scans (collect_stats=
      False); the same on the IMU course de-skewed with and without the
-     IMU, whose difference is the IMU's device events a scan; and one
-     steady fleet chunk of 6 steps at each B (device events a step).
+     IMU, whose difference is the IMU's device events a scan; 6 steady
+     scans of the faithful configuration; and one steady fleet chunk of 6
+     steps at each B (device events a step).
 
 K1 is also held against its plain version, and timed beside its bound, on
 one synthetic scan of each other sensor preset (OS1-16, HDL-32E, OS1-64,
@@ -152,12 +181,15 @@ every scan from one pose; the IMU phase's swept scans run the default
 deskew=True.  Every other knob is the default PipelineConfig.
 
 Prints the slice's, the HDL-64E path's, the loop path's, the IMU phase's,
-the chunk phases', the export's and the fleet's numbers, the
-card-against-CPU gaps, K1's at each preset, K2's at HDL-64E and E1's
-extras as one JSON line, then the kernel results as {"kernels": [...]}
+the chunk phases', the export's, the faithful path's, the oracle phase's
+and the fleet's numbers, the card-against-CPU gaps, K1's at each preset,
+K2's at HDL-64E (both orders) and E1's extras (6x6 and 3x3) as one JSON
+line, then the kernel results as {"kernels": [...]}
 (K1 at VLP-16's shape; K3 with its launches a loop check and its loop
 shapes; every kernel with its launches on the slice, inside the chunked
-run and on the fleet's B = 8 run, and its batched launch at B = 8), and
+run and on the fleet's B = 8 run, and its batched launch at B = 8; K2's
+sequential mode and E1's 3x3 form as rows of their own, launches from
+the faithful path and its chunks), and
 as the last line {"ok": true, "device": {...}}.
 """
 
@@ -204,11 +236,9 @@ FP64_OPS_PER_S = 34e12      # float64 outside the tensor cores (E1's Jacobi)
 CHUNK_C, LOOP_CHUNK_C = 10, 4
 CHUNK_POS_M, CHUNK_ROT_DEG = 1e-3, 0.01
 C6_CHUNK_C = 3
-# E1: float64 operations of one Jacobi rotation (angle ~10, two rows and
-# two columns of A and two columns of V, 6 x (4 mul + 2 add) each) and of
-# a sweep's off-diagonal sum (15 squares and adds)
-E1_ROTATION_OPS, E1_SWEEP_OPS = 10 + 3 * 36, 30
 E1_TOL = 1e-5
+# the oracle phase: tests/test_oracle_pipeline.py's bounds (m)
+ORACLE_ATE, PORT_ATE, CROSS_ATE = 0.10, 0.08, 0.10
 # fleet batching: FLEET_B sequences of N_SCANS scans run at B of
 # FLEET_BATCHES through BatchPipeline in chunks of CHUNK_C, each sequence
 # held to its own run through LegoLoamPipeline.process_chunk at B = FLEET_B
@@ -307,6 +337,17 @@ def kernel_wrappers():
 
     return (segmentation.propagate_labels, features.label_features, knn.knn,
             eig6.eig6)
+
+
+def mode_counts(zero: bool = False) -> dict:
+    """The launches, inside their wrappers' totals, of K2 in the sequential
+    order and of E1 on 3x3 matrices (set to 0 first with `zero`)."""
+    from lego_loam_tpu_torch.ops import eig6, features
+
+    if zero:
+        features.label_features.launches_sequential = eig6.eig6.launches_3x3 = 0
+    return {"label_features_sequential": features.label_features.launches_sequential,
+            "eig6_3x3": eig6.eig6.launches_3x3}
 
 
 def make_scans(cfg, world, poses, noise=0.01):
@@ -521,6 +562,80 @@ def check_k2(torch, cfg, imgs, hcfg, himg, dev):
         f"one scan each of {', '.join(K2_PRESETS)}")
 
 
+def check_k2_sequential(torch, fcfg, imgs, bimgs, hcfg, himg, dev):
+    """K2's sequential mode (the reference's sector-by-sector order, FAITHFUL's
+    sector_parallel=False) against its plain version, bit for bit: the
+    VLP-16 check scans, the HDL-64E path's first scan, one scan of each
+    sensor preset, and the `bimgs` VLP-16 scans in one launch under
+    torch.func.vmap against the plain version a scan at a time; and on
+    tests/test_features.py's scan and config against the NumPy oracle of
+    the C++ reference's order (tests/oracle_features.oracle_extract,
+    labels).  Timed on the first VLP-16 scan and on the HDL-64E one."""
+    from lego_loam_tpu_torch import config_for
+    from lego_loam_tpu_torch.io import synthetic as syn
+    from lego_loam_tpu_torch.ops import features as fops
+    from lego_loam_tpu_torch.ops.compaction import segment_scan
+    from lego_loam_tpu_torch.ops.projection import project_scan
+    from tests import oracle_features as ofeat
+
+    hcfg = hcfg.replace(sector_parallel=False)
+    cases = [k2_case(torch, fcfg, img) for img in imgs]
+    hcase = k2_case(torch, hcfg, himg)
+    presets = {}
+    for name in K2_PRESETS:
+        pcfg, img = preset_image(torch, name, dev)
+        presets[name] = k2_case(torch, pcfg.replace(sector_parallel=False), img,
+                                need_features=False)[3]
+    # the batch: one launch for every scan
+    packed = [segment_scan(img, fcfg)[0] for img in bimgs]
+    stacked = type(packed[0])(*(torch.stack(v) for v in zip(*packed)))
+    n = fops.label_features.launches_sequential
+    lab, pick = torch.func.vmap(lambda p: fops.label_features(p, fcfg))(stacked)
+    if fops.label_features.launches_sequential != n + 1:
+        fail("K2's sequential mode took more than one launch for a vmapped batch")
+    for b, p in enumerate(packed):
+        lp, pp = fops.label_features_plain(p, fcfg)
+        if not (torch.equal(lab[b], lp) and torch.equal(pick[b], pp)):
+            fail(f"K2's sequential batched launch differs from its plain version "
+                 f"on scan {b}")
+    # the C++ reference's order, in NumPy
+    ocfg = config_for("vlp16", sector_parallel=False, edge_prominence=0.0)
+    xyz, valid, ring = syn.raycast(syn.default_world(seed=5), np.eye(3),
+                                   np.array([1.0, -2.0, 1.6]), ocfg.sensor, noise=0.01)
+    opk = segment_scan(project_scan(*(torch.as_tensor(a, device=dev) for a in (
+        xyz, valid)), ocfg, torch.as_tensor(ring, device=dev)), ocfg)[0]
+    olab = fops.label_features(opk, ocfg)[0].cpu().numpy()
+    oref = ofeat.oracle_extract(*(getattr(opk, f).cpu().numpy() for f in (
+        "rng", "col", "ground", "valid", "count")), ocfg)[0]
+    if not np.array_equal(olab, oref):
+        fail(f"K2's sequential mode differs from the C++ reference's order "
+             f"(oracle_extract) on {int((olab != oref).sum())} labels")
+    rows = [("vlp16", fcfg, cases[0]), ("hdl64e", hcfg, hcase)]
+    out = {tag: k2_timing(torch, c, *case[:3]) for tag, c, case in rows}
+    for tag, c, case in rows:
+        h = out[tag]
+        print(f"  K2 sequential {tag} {'x'.join(map(str, case[1].shape))}: equal, "
+              f"(sharp, flat) picks {case[3]}, kernel {h['ms']:.4f} ms (call "
+              f"{h['call_ms']:.4f} ms), plain {h['plain_ms']:.4f} ms, bound "
+              f"{h['bound_ms']:.5f} ms ({h['bound_by']}), "
+              f"{100 * h['bound_ms'] / h['ms']:.2f} % of it")
+    print(f"  K2 sequential presets: equal, (sharp, flat) picks {presets}; a batch "
+          f"of {len(bimgs)} VLP-16 scans in one launch equal to the plain version "
+          f"a scan at a time; the oracle scan's {int((olab != 0).sum())} labels "
+          f"equal to oracle_extract's")
+    return {
+        "name": "label_features_sequential", "route": "cuda",
+        "source": "lego_loam_tpu_torch/csrc/pick_features.cu",
+        "replaces": "lego_loam_tpu/ops/features.py:222",
+        "note": "no TPU kernel: the JAX package runs the sequential order as a "
+                "loop of 144 XLA steps; a mode of K2 (pick_features_pallas, "
+                "lego_loam_tpu/ops/features_pallas.py:87)",
+        "max_abs_err": 0.0, "library_ms": None, "hdl64e": out["hdl64e"],
+        **{k: out["vlp16"][k] for k in ("ms", "call_ms", "plain_ms",
+                                        "bound_ms", "bound_by")},
+    }
+
+
 def knn_case(torch, query, ref, valid, k=5):
     """Kernel vs plain k-NN on one shape; returns a dict of max_abs_err, ms,
     plain_ms, shares of identical indices and bit-equal distances, call_ms,
@@ -660,6 +775,7 @@ def run_slice(torch, cfg, scans, poses, dev, n_warm=WARM_SCANS,
     pipe = pl.LegoLoamPipeline(cfg, dev)
     for w in wrappers:
         w.launches = 0
+    mode_counts(zero=True)
     t_win = None
     syncs = []
     sync_sites = Counter()
@@ -681,6 +797,7 @@ def run_slice(torch, cfg, scans, poses, dev, n_warm=WARM_SCANS,
             res = feed(pipe, k)
         rows.append(res)
     launches = {w.__name__: w.launches for w in wrappers}
+    modes = mode_counts()
     peak = torch.cuda.max_memory_allocated(dev)
 
     R0, t0 = poses[0]
@@ -717,7 +834,8 @@ def run_slice(torch, cfg, scans, poses, dev, n_warm=WARM_SCANS,
     finally:
         pl.frontend_step, pl.mp.mapping_step = orig_fe, orig_map
     return {
-        "launches": launches, "ate_m": ate, "max_err_m": float(np.max(errs)),
+        "launches": launches, "mode_launches": modes,
+        "ate_m": ate, "max_err_m": float(np.max(errs)),
         "ate_aligned_m": ate_aligned,
         "scans_per_s": n_win / t_win, "window_scans": n_win,
         "frontend_ms": float(np.mean(fe_ms)), "mapping_ms": float(np.mean(map_ms)),
@@ -795,6 +913,7 @@ def run_loop_path(torch, cfg, scans, stamps, positions, every, dev):
     finally:
         pl.lc.loop_closure_step, lc.icp_align = orig_step, orig_icp
     launches = {w.__name__: w.launches for w in wrappers}
+    modes = mode_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     truth = [p - positions[0] for p in positions]
     errs = [float(np.linalg.norm(p - q)) for p, q in zip(pipe.trajectory, truth)]
@@ -1112,24 +1231,34 @@ def capture_eig6_inputs(torch, cfg, scans, dev):
     return kept
 
 
-E1_BYTES = 36 * 4 + 36 * 4 + 6 * 4 + 4
+def e1_bytes(n: int = 6) -> int:
+    """E1's bytes for one n x n matrix: H read, P, lam and the sweep count
+    written (316 B at 6x6, 88 B at 3x3)."""
+    return 4 * (2 * n * n + n + 1)
 
 
-def e1_ops(sweeps: int) -> int:
-    return 72 + sweeps * (15 * E1_ROTATION_OPS + E1_SWEEP_OPS) + 36 * 6 * 3
+E1_BYTES = e1_bytes()
 
 
-def e1_bound(sweeps: int):
-    """E1's bound for one matrix: H read (144 B), P, lam and the sweep
-    count written (172 B); float64 operations: the symmetrisation (72),
-    `sweeps` Jacobi sweeps of 15 rotations, and P (36 entries of 6 terms,
-    3 operations each)."""
-    return bound(E1_BYTES, e1_ops(sweeps), FP64_OPS_PER_S)
+def e1_ops(sweeps: int, n: int = 6) -> int:
+    """E1's float64 operations for one n x n matrix: the symmetrisation
+    (2 n^2), `sweeps` Jacobi sweeps of n (n - 1) / 2 rotations (angle ~10
+    operations, then two rows and two columns of A and two columns of V,
+    n x (4 mul + 2 add) each) with their off-diagonal sums (n (n - 1)),
+    and P (n^2 entries of n terms, 3 operations each)."""
+    return (2 * n * n + sweeps * (n * (n - 1) // 2 * (10 + 18 * n) + n * (n - 1))
+            + 3 * n ** 3)
 
 
-def check_e1(torch, cfg, captured, dev):
-    """E1 against its plain version on the card: the captured H of real
-    odometry rounds and mapping solves and the seeded spectra of
+def e1_bound(sweeps: int, n: int = 6):
+    """E1's bound for one n x n matrix, from e1_bytes and e1_ops."""
+    return bound(e1_bytes(n), e1_ops(sweeps, n), FP64_OPS_PER_S)
+
+
+def check_e1(torch, cfg, captured, dev, n=6):
+    """E1 against its plain version on the card, on n x n matrices: the
+    captured H of real odometry rounds and mapping solves (6x6), or of the
+    two-step odometry's phases (3x3), and the seeded spectra of
     tests/torch_courses.eig6_spectra, batched by threshold.  P within
     E1_TOL, eigenvalues within E1_TOL of |H|, equal keep masks; a mask may
     differ only where an eigenvalue lies within E1_TOL |H| of the threshold
@@ -1138,13 +1267,14 @@ def check_e1(torch, cfg, captured, dev):
     from lego_loam_tpu_torch.ops import eig6
     from tests.torch_courses import eig6_spectra
 
+    captured = [c for c in captured if c[0].shape[-1] == n]
     groups = {}
     for H, th in captured:
         groups.setdefault(th, []).append(H)
     n_captured = {th: len(v) for th, v in groups.items()}
     for th in (cfg.odom_degen_eig_thresh, cfg.map_degen_eig_thresh):
         groups.setdefault(th, []).extend(
-            torch.as_tensor(h, device=dev) for _, h in eig6_spectra(th))
+            torch.as_tensor(h, device=dev) for _, h in eig6_spectra(th, n=n))
     worst_p = worst_lam = 0.0
     near = sweeps_max = 0
     for th, items in groups.items():
@@ -1159,8 +1289,8 @@ def check_e1(torch, cfg, captured, dev):
         bad = (d_lam > E1_TOL) | (~same_mask & ~at_thresh) | (same_mask & (d_p > E1_TOL))
         if bool(bad.any()):
             i = int(bad.nonzero()[0, 0])
-            fail(f"E1 eig6 differs from its plain version at threshold {th} on "
-                 f"matrix {i}: |dP| {float(d_p[i]):.3g}, |dlam|/|H| "
+            fail(f"E1 eig6 ({n}x{n}) differs from its plain version at threshold "
+                 f"{th} on matrix {i}: |dP| {float(d_p[i]):.3g}, |dlam|/|H| "
                  f"{float(d_lam[i]):.3g}, keep masks equal {bool(same_mask[i])}")
         near += int((~same_mask).sum())
         worst_p = max(worst_p, float(d_p[same_mask].max()))
@@ -1168,8 +1298,10 @@ def check_e1(torch, cfg, captured, dev):
         sweeps_max = max(sweeps_max, int(sw.max()))
 
     # timed on the first odometry round of the third scan (the first scan
-    # has no references yet: its rounds see H = 0)
-    H1, th1 = [c for c in captured if c[1] == cfg.odom_degen_eig_thresh][10]
+    # has no references yet: its rounds see H = 0); the block odometry
+    # projects 5 times a scan, the two-step 10
+    per_scan = cfg.odom_outer_iters * (1 if n == 6 else 2)
+    H1, th1 = [c for c in captured if c[1] == cfg.odom_degen_eig_thresh][2 * per_scan]
     kernel = lambda: eig6.degeneracy_projection(H1, th1)  # noqa: E731
     plain = lambda: eig6.degeneracy_projection_plain(H1, th1)  # noqa: E731
 
@@ -1178,26 +1310,28 @@ def check_e1(torch, cfg, captured, dev):
         return (V * (lam >= th1).to(H1.dtype)) @ V.T
 
     sweeps1 = int(eig6.eig6(H1[None], th1)[2][0])
-    b_ms, b_by = e1_bound(sweeps1)
+    b_ms, b_by = e1_bound(sweeps1, n)
     out = {
-        "name": "eig6", "route": "cuda", "source": "lego_loam_tpu_torch/csrc/eig6.cu",
+        "name": "eig6" if n == 6 else f"eig6_{n}x{n}", "route": "cuda",
+        "source": "lego_loam_tpu_torch/csrc/eig6.cu",
         "replaces": "lego_loam_tpu/models/odometry.py:340",
         "note": "no TPU kernel: _degeneracy_projection's jnp.linalg.eigh, which "
-                "torch.linalg.eigh would run with a host sync",
+                "torch.linalg.eigh would run with a host sync"
+                + ("" if n == 6 else "; the two-step odometry's 3x3 phases"),
         "max_abs_err": max(worst_p, worst_lam),
         "ms": cuda_ms(torch, kernel, 200), "call_ms": call_ms(torch, kernel, 200),
         "plain_ms": cuda_ms(torch, plain, 50), "library_ms": cuda_ms(torch, library, 50),
         "library_call_ms": call_ms(torch, library, 50),
         "bound_ms": b_ms, "bound_by": b_by, "sweeps": sweeps1,
         "matrices": {str(th): len(v) for th, v in groups.items()},
-        "captured": {str(th): n for th, n in n_captured.items()},
+        "captured": {str(th): k for th, k in n_captured.items()},
         "near_threshold_flips": near, "max_sweeps": sweeps_max,
     }
-    print(f"  E1 eig6: {sum(map(len, groups.values()))} matrices "
+    print(f"  E1 eig6 {n}x{n}: {sum(map(len, groups.values()))} matrices "
           f"({out['captured']} captured from odometry rounds / mapping solves "
           f"by threshold, the rest seeded spectra): max|dP| {worst_p:.3g}, "
           f"max|dlam|/|H| {worst_lam:.3g}, keep masks equal except "
-          f"{near} at the threshold, at most {sweeps_max} sweeps; one 6x6 "
+          f"{near} at the threshold, at most {sweeps_max} sweeps; one {n}x{n} "
           f"({sweeps1} sweeps): kernel {out['ms']:.4f} ms (call "
           f"{out['call_ms']:.4f} ms), plain {out['plain_ms']:.4f} ms, "
           f"torch.linalg.eigh + projection {out['library_ms']:.4f} ms (call "
@@ -1233,6 +1367,7 @@ def run_chunks(torch, cfg, scans, dev, C, collect_stats=True, every=10):
     wrappers = kernel_wrappers()
     for w in wrappers:
         w.launches = 0
+    mode_counts(zero=True)
     results, syncs, sites = [], [], Counter()
     t = time.perf_counter()
     for ch in chunks:
@@ -1244,7 +1379,8 @@ def run_chunks(torch, cfg, scans, dev, C, collect_stats=True, every=10):
     t = time.perf_counter() - t
     return {"pipe": pipe, "results": results, "syncs_per_chunk": syncs,
             "sync_sites": dict(sites), "scans_per_s": len(scans) / t,
-            "launches": {w.__name__: w.launches for w in wrappers}}
+            "launches": {w.__name__: w.launches for w in wrappers},
+            "mode_launches": mode_counts()}
 
 
 def chunk_gaps(torch, results, rows):
@@ -1366,6 +1502,158 @@ def card_against_cpu_chunks(torch, cfg, scans, dev, C=C6_CHUNK_C):
         if gap[what] > lim:
             faults.append(f"largest {what} gap {gap[what]:.5g} over {lim}")
     return {"scans": len(scans), "chunk": C, "gaps": gap}, faults
+
+
+# ------------------------------------------------- the faithful config
+
+def faithful_phase(torch, fcfg, scans, poses, dev):
+    """The reference-faithful configuration (tests/torch_courses.FAITHFUL)
+    at full width over the slice's 30-scan course: run_slice (scans/s,
+    stage ms, peak memory, 1 host sync a scan), 0 host syncs a scan with
+    collect_stats=False, the course in chunks of CHUNK_C without stats (0
+    syncs a chunk, poses within CHUNK_POS_M / CHUNK_ROT_DEG of process_scan,
+    equal did_map and keyframes), ATE under ATE_BOUND, every kernel
+    launched, K2 in the sequential order once a scan and E1 at 3x3 twice a
+    round (two phases of odom_outer_iters rounds a scan); torch.linalg.eigh
+    is never called.  Returns its numbers."""
+    from lego_loam_tpu_torch.models import pipeline as pl
+
+    eigh_calls = []
+    orig_eigh = torch.linalg.eigh
+
+    def eigh(*a, **kw):
+        eigh_calls.append(1)
+        return orig_eigh(*a, **kw)
+
+    torch.linalg.eigh = eigh
+    try:
+        fl = run_slice(torch, fcfg, scans, poses, dev)
+        rows = fl.pop("_rows")
+        nopipe = pl.LegoLoamPipeline(fcfg, dev, collect_stats=False)
+        fl["process_scan_no_stats_syncs"] = [
+            len(catch_syncs(torch, lambda s=s: nopipe.process_scan(*s))[1])
+            for s in device_scans(torch, fcfg, scans[:SYNC_SCANS], dev)]
+        del nopipe
+        ch = run_chunks(torch, fcfg, scans, dev, CHUNK_C, False)
+    finally:
+        torch.linalg.eigh = orig_eigh
+    pipe_c, res_c = ch.pop("pipe"), ch.pop("results")
+    ch["gaps"], bad = chunk_gaps(torch, res_c, rows)
+    ch["n_kf"] = int(pipe_c.mstate.n_kf)
+    fl["chunk"] = ch
+    fl["torch_linalg_eigh_calls"] = len(eigh_calls)
+    n = len(scans)
+    want = {"label_features_sequential": n, "eig6_3x3": 2 * fcfg.odom_outer_iters * n}
+    g = ch["gaps"]
+    print(f"faithful: {n} scans, ATE {fl['ate_m']:.4f} m (max {fl['max_err_m']:.4f} "
+          f"m), {fl['n_kf']} keyframes; {fl['scans_per_s']:.2f} scans/s over "
+          f"{fl['window_scans']} scans; frontend_step {fl['frontend_ms']:.2f} ms, "
+          f"mapping_step {fl['mapping_ms']:.2f} ms; peak memory "
+          f"{fl['peak_mem_bytes'] / 2**20:.1f} MiB")
+    print(f"faithful: host syncs per scan {fl['host_syncs_per_scan']} by site "
+          f"{fl['sync_sites']}, with collect_stats=False "
+          f"{fl['process_scan_no_stats_syncs']}; kernel launches {fl['launches']}, of "
+          f"which {fl['mode_launches']}; torch.linalg.eigh calls "
+          f"{len(eigh_calls)}")
+    print(f"faithful chunks (no stats): {n} scans in chunks of {CHUNK_C}, "
+          f"{ch['scans_per_s']:.2f} scans/s; against process_scan fused "
+          f"{g['fused_m'] * 1e3:.4f} mm / {g['fused_deg']:.5f} deg, mapped "
+          f"({g['mapped_scans']} solves) {g['mapped_m'] * 1e3:.4f} mm / "
+          f"{g['mapped_deg']:.5f} deg; host syncs per chunk {ch['syncs_per_chunk']} "
+          f"by site {ch['sync_sites']}; kernel launches {ch['launches']}, of which "
+          f"{ch['mode_launches']}")
+    if eigh_calls:
+        fail(f"torch.linalg.eigh ran {len(eigh_calls)} times on the faithful path")
+    for key, count in list(fl["launches"].items()) + list(ch["launches"].items()):
+        if count == 0:
+            fail(f"kernel {key} was not launched on the faithful path")
+    for tag, got in (("process_scan", fl["mode_launches"]),
+                     ("process_chunk", ch["mode_launches"])):
+        if got != want:
+            fail(f"faithful {tag}: launches of K2's sequential mode / E1 at 3x3 "
+                 f"{got}, not {want}")
+    if fl["host_syncs_per_scan"] != [1] * SYNC_SCANS:
+        fail(f"faithful: host syncs per scan {fl['host_syncs_per_scan']}, not 1 "
+             f"each ({fl['sync_sites']})")
+    if any(fl["process_scan_no_stats_syncs"]):
+        fail(f"faithful process_scan with collect_stats=False synced: "
+             f"{fl['process_scan_no_stats_syncs']}")
+    if any(ch["syncs_per_chunk"]):
+        fail(f"faithful chunks: host syncs per chunk {ch['syncs_per_chunk']}, not 0 "
+             f"({ch['sync_sites']})")
+    if bad:
+        fail(f"faithful chunks: did_map differs from process_scan on scans {bad}")
+    if g["fused_m"] > CHUNK_POS_M or g["mapped_m"] > CHUNK_POS_M or \
+            g["fused_deg"] > CHUNK_ROT_DEG or g["mapped_deg"] > CHUNK_ROT_DEG:
+        fail(f"faithful chunk poses differ from process_scan by {g}")
+    if ch["n_kf"] != fl["n_kf"]:
+        fail(f"faithful chunks: {ch['n_kf']} keyframes against {fl['n_kf']}")
+    if not np.isfinite(fl["ate_m"]) or fl["ate_m"] >= ATE_BOUND:
+        fail(f"faithful ATE {fl['ate_m']:.4f} m is not under {ATE_BOUND} m")
+    return fl
+
+
+def _traj_ate(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.sqrt(np.mean(np.sum((a - b) ** 2, axis=1))))
+
+
+def oracle_phase(torch, dev):
+    """The port on the card against the NumPy oracle of the whole C++
+    reference pipeline (tests/oracle_pipeline.OraclePipeline: the
+    reference's sequential picks, two-step LM, 3-point planes) over
+    tests/test_oracle_pipeline.py's 15-scan course, in that test's config
+    (tests/torch_courses.ORACLE_CFG, whose odometry is the block schedule)
+    and in it with odom_mode="two_step" (FAITHFUL's odometry).  Each arm
+    is held to the test's bounds: the oracle's ATE under ORACLE_ATE, the
+    port's under PORT_ATE, port against oracle under CROSS_ATE, keyframe
+    counts within 1; in the two-step arm the port's ATE is held to
+    ORACLE_ATE instead of PORT_ATE (ROADMAP C12: the JAX package's
+    two-step lands 0.093 m on this course on the CPU, the port 0.093 m
+    there, where the block schedule lands 0.033 m)."""
+    from lego_loam_tpu_torch import config_for
+    from lego_loam_tpu_torch.models import pipeline as pl
+    from tests.oracle_pipeline import OraclePipeline
+    from tests.torch_courses import ORACLE_CFG, oracle_course
+
+    cfg = config_for("vlp16", **ORACLE_CFG)
+    poses, scans = oracle_course(cfg.sensor)
+    gt = np.asarray([t for _, t in poses]) - poses[0][1]
+    orc = OraclePipeline(cfg)
+    t = time.perf_counter()
+    for sc in scans:
+        orc.process_scan(*sc)
+    out = {"oracle_s_per_scan": (time.perf_counter() - t) / len(scans),
+           "oracle_ate_m": _traj_ate(orc.trajectory, gt), "oracle_n_kf": len(orc.kf_R)}
+    faults = []
+    for tag, over, port_bound in (("test_cfg", {}, PORT_ATE),
+                                  ("two_step", dict(odom_mode="two_step"), ORACLE_ATE)):
+        pcfg = cfg.replace(**over)
+        pipe = pl.LegoLoamPipeline(pcfg, dev, collect_stats=False)
+        for sc in device_scans(torch, pcfg, scans, dev):
+            pipe.process_scan(*sc)
+        traj = pipe.trajectory_numpy()
+        arm = out[tag] = {"port_ate_m": _traj_ate(traj, gt),
+                          "port_vs_oracle_m": _traj_ate(traj, orc.trajectory),
+                          "n_kf": int(pipe.mstate.n_kf), "port_ate_bound_m": port_bound}
+        print(f"oracle [{tag}, odom_mode={pcfg.odom_mode}]: {len(scans)} scans, "
+              f"oracle ATE {out['oracle_ate_m']:.4f} m ({out['oracle_n_kf']} "
+              f"keyframes, {out['oracle_s_per_scan']:.2f} s a scan on the host), "
+              f"port ATE {arm['port_ate_m']:.4f} m ({arm['n_kf']} keyframes), port "
+              f"against oracle {arm['port_vs_oracle_m']:.4f} m")
+        if not arm["port_ate_m"] < port_bound:
+            faults.append(f"{tag}: port ATE {arm['port_ate_m']:.4f} m over {port_bound}")
+        if not arm["port_vs_oracle_m"] < CROSS_ATE:
+            faults.append(f"{tag}: port against oracle {arm['port_vs_oracle_m']:.4f} m "
+                          f"over {CROSS_ATE}")
+        if abs(arm["n_kf"] - out["oracle_n_kf"]) > 1:
+            faults.append(f"{tag}: {arm['n_kf']} keyframes against the oracle's "
+                          f"{out['oracle_n_kf']}")
+    if not out["oracle_ate_m"] < ORACLE_ATE:
+        faults.append(f"oracle ATE {out['oracle_ate_m']:.4f} m over {ORACLE_ATE}")
+    if faults:
+        fail("the port against the C++ reference's oracle: " + "; ".join(faults))
+    return out
 
 
 # ---------------------------------------------------------------- fleet
@@ -1819,10 +2107,11 @@ def main() -> None:
     from lego_loam_tpu_torch.models import pipeline as pl
     from lego_loam_tpu_torch.ops.projection import project_scan
     from tests.test_torch_sensor_rows import mid_row
-    from tests.torch_courses import (LOOP, LOOP_CHECK_EVERY, LOOP_COURSE_KNOBS,
-                                     LOOP_FINAL_BOUND, LOOP_SCAN_PERIOD,
-                                     LOOP_SHORT_OUT, SMALL, fast_yaw_course,
-                                     fast_yaw_imu, loop_course, slice_course)
+    from tests.torch_courses import (FAITHFUL, LOOP, LOOP_CHECK_EVERY,
+                                     LOOP_COURSE_KNOBS, LOOP_FINAL_BOUND,
+                                     LOOP_SCAN_PERIOD, LOOP_SHORT_OUT, SMALL,
+                                     fast_yaw_course, fast_yaw_imu, loop_course,
+                                     slice_course)
 
     dev = torch.device("cuda:0")
     clock = PhaseClock()
@@ -1872,6 +2161,17 @@ def main() -> None:
     # mapping solves) and on seeded spectra
     results.append(check_e1(torch, cfg, capture_eig6_inputs(torch, cfg, scans[:7], dev),
                             dev))
+    # the reference-faithful configuration's forms: K2 in the sequential
+    # order, E1 at 3x3 on the H of the two-step odometry's phases over the
+    # slice's first 7 scans (70 of them) and on seeded 3x3 spectra
+    fcfg = config_for("vlp16", **FAITHFUL)
+    bimgs = [project_scan(*(torch.as_tensor(a, device=dev) for a in scans[k][:2]),
+                          fcfg, torch.as_tensor(scans[k][2], device=dev))
+             for k in range(8)]
+    results.append(check_k2_sequential(torch, fcfg, imgs, bimgs, hcfg, himg, dev))
+    del bimgs
+    results.append(check_e1(torch, fcfg, capture_eig6_inputs(torch, fcfg, scans[:7], dev),
+                            dev, n=3))
 
     clock("the slice")
     sl = run_slice(torch, cfg, scans, poses, dev)
@@ -1966,6 +2266,13 @@ def main() -> None:
         fail(f"process_scan with collect_stats=False synced: {quiet}")
     chunk["process_scan_no_stats_syncs"] = quiet
     del nopipe
+
+    # the reference-faithful configuration at full width
+    clock("the faithful path")
+    faithful = faithful_phase(torch, fcfg, scans, poses, dev)
+    for r in results[4:]:
+        r["launches"] = faithful["mode_launches"][r["name"]]
+        r["launches_in_chunks"] = faithful["chunk"]["mode_launches"][r["name"]]
 
     clock("the HDL-64E path")
     hl = run_slice(torch, hcfg, hscans, hposes, dev, HDL_WARM, HDL_SYNC)
@@ -2129,7 +2436,9 @@ def main() -> None:
             ("main", config_for("vlp16", **SMALL), scans6, [None] * len(scans6), None),
             ("loop", config_for("vlp16", **LOOP), lscans6, lstamps, None),
             ("imu", config_for("vlp16", **dict(SMALL, deskew=True)),
-             iscans[:C6_IMU_SCANS], istamps[:C6_IMU_SCANS], iimu[:C6_IMU_SCANS])):
+             iscans[:C6_IMU_SCANS], istamps[:C6_IMU_SCANS], iimu[:C6_IMU_SCANS]),
+            ("faithful", config_for("vlp16", **dict(SMALL, **FAITHFUL)), scans6,
+             [None] * len(scans6), None)):
         c6[tag], faults = card_against_cpu(torch, ccfg, cscans, cstamps,
                                            LOOP_CHECK_EVERY, dev, cimu)
         g = c6[tag]["gaps"]
@@ -2162,6 +2471,10 @@ def main() -> None:
     if faults:
         fail("the card's chunks differ from the CPU run: " + "; ".join(faults))
 
+    # the C++ reference's NumPy oracle against the port on the card
+    clock("the C++ reference's oracle")
+    oracle = oracle_phase(torch, dev)
+
     # fleet batching at full width (models/batch.py)
     clock("fleet batching")
     fleet, fchunks = fleet_phase(torch, cfg, scans, poses, lccfg, results, card, dev)
@@ -2175,6 +2488,13 @@ def main() -> None:
           f"busy {pr['device_busy_ms_per_scan']:.2f} ms of "
           f"{pr['host_ms_per_scan']:.2f} ms a scan (host clock, under the "
           f"profiler): device idle {100 * pr['device_idle_share']:.1f} %")
+    faithful["profile"] = pf = profile_scans(torch, fcfg, scans, dev)
+    print(f"faithful: torch.profiler over {pf['scans']} steady scans: "
+          f"{pf['device_events_per_scan']:.0f} device events a scan (the slice "
+          f"{pr['device_events_per_scan']:.0f}), device busy "
+          f"{pf['device_busy_ms_per_scan']:.2f} ms of {pf['host_ms_per_scan']:.2f} "
+          f"ms a scan (host clock, under the profiler): device idle "
+          f"{100 * pf['device_idle_share']:.1f} %")
     chunk["stats"]["profile"] = pc = profile_chunk(torch, cfg, scans, dev)
     print(f"chunk: torch.profiler over one steady chunk of {pc['scans']} scans "
           f"(collect_stats=False): {pc['device_events_per_scan']:.0f} device events "
@@ -2206,6 +2526,11 @@ def main() -> None:
     clock(None)
     print(json.dumps({"slice": sl, "hdl64e": hl, "loop": lp, "imu": arms,
                       "chunk": chunk, "export": export, "card_vs_cpu": c6,
+                      "faithful": faithful, "oracle": oracle,
+                      "k2_sequential_hdl64e": results[4]["hdl64e"],
+                      "e1_3x3": {k: results[5][k] for k in (
+                          "call_ms", "library_call_ms", "sweeps", "matrices",
+                          "captured", "near_threshold_flips", "max_sweeps")},
                       "fleet": fleet, "phase_s": clock.seconds,
                       "k1_presets": results[0]["presets"],
                       "k2_hdl64e": results[1]["hdl64e"],

@@ -171,7 +171,10 @@ class PipelineConfig:
                                              # unused calculateTransformation
                                              # path, featureAssociation.cpp:
                                              # 1480-1603; drifts on low-
-                                             # excitation paths)
+                                             # excitation paths).  The port
+                                             # runs all three (two_step's
+                                             # 3x3 degeneracy projection is
+                                             # kernel E1 on the card)
     odom_outer_iters: int = 5                # correspondence refresh rounds
     odom_inner_iters: int = 5                # GN steps per refresh (5*5 = 25)
     odom_step_scale: float = 1.0             # 1.0 = full GN steps; the
@@ -219,7 +222,8 @@ class PipelineConfig:
                                              # "tri" = reference-faithful
                                              # 3-point plane
                                              # (featureAssociation.cpp:
-                                             # 1163-1226)
+                                             # 1163-1226); the port runs
+                                             # both, in every odom_mode
     odom_class_gate: bool = True             # surf association may only pair
                                              # points with the SAME ground
                                              # label (new vs reference: its
@@ -403,7 +407,10 @@ class PipelineConfig:
                                              # suppression then applies
                                              # simultaneously rather than
                                              # sequentially; False = exact
-                                             # reference ordering)
+                                             # reference ordering).  The
+                                             # port runs both orders, each
+                                             # as a mode of kernel K2 on
+                                             # the card
 
     # --- pose graph (replaces gtsam; models/posegraph.py) ---
     pg_gn_iters: int = 6                     # outer Gauss-Newton iterations;

@@ -1,4 +1,5 @@
-// E1: the degeneracy projection of a symmetric 6x6 matrix, on the device.
+// E1: the degeneracy projection of a symmetric 6x6 or 3x3 matrix, on the
+// device.
 //
 // No Pallas kernel stands behind this one: the JAX package computes
 //   lego_loam_tpu/models/odometry.py :: _degeneracy_projection
@@ -7,7 +8,10 @@
 // PyTorch, torch.linalg.eigh on a CUDA tensor reads cuSOLVER's info code
 // back to the host: one host sync on every call, 5 a scan in the odometry
 // and 1 a mapping solve.  This kernel takes that sync off the path, so a
-// chunk of scans runs without the host waiting on the card.
+// chunk of scans runs without the host waiting on the card.  The block and
+// joint odometry and the mapping solve hand it 6x6 systems; the two-step
+// odometry (odom_mode="two_step") solves 3 degrees of freedom a phase and
+// hands it 3x3 ones, 2 phases x 5 rounds a scan.
 //
 // What it computes: H is symmetrised in float64 as (H + H^T) / 2 (jnp's
 // eigh symmetrises its input too), diagonalised by cyclic Jacobi rotations
@@ -25,24 +29,24 @@
 // solve), needs no rotation: a rotation runs only where a_pq != 0.
 //
 // What bounds it on an H100: latency.  The work is 36 numbers in, 42 out
-// and a few thousand float64 operations, far below a microsecond of
-// bandwidth or FP64 rate; the call is the one launch.  One thread does one
-// matrix (every index of the unrolled loops is a compile-time constant, so
-// A and V stay in registers); the wrapper launches a batch of B matrices
-// as ceil(B / 32) blocks of 32 threads.
+// and a few thousand float64 operations (9 in, 12 out and a few hundred at
+// 3x3), far below a microsecond of bandwidth or FP64 rate; the call is the
+// one launch.  One thread does one matrix (the size is a template
+// argument and every index of the unrolled loops a compile-time constant,
+// so A and V stay in registers); the wrapper launches a batch of B
+// matrices as ceil(B / 32) blocks of 32 threads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kN = 6;
 constexpr int kThreads = 32;
 constexpr int kMaxSweeps = 32;   // 6x6 converges in ~6 sweeps (quadratic)
 
 // One Jacobi rotation in the (p, q) plane, zeroing a[p][q]: A <- J^T A J,
 // V <- V J, with t the smaller root of t^2 + 2 theta t - 1 = 0.
-template <int p, int q>
+template <int kN, int p, int q>
 __device__ __forceinline__ void rotate(double (&a)[kN][kN], double (&v)[kN][kN]) {
   const double apq = a[p][q];
   if (apq == 0.0) return;
@@ -74,18 +78,19 @@ __device__ __forceinline__ void rotate(double (&a)[kN][kN], double (&v)[kN][kN])
   }
 }
 
-template <int p, int q>
+template <int kN, int p, int q>
 __device__ __forceinline__ void sweep_from(double (&a)[kN][kN], double (&v)[kN][kN]) {
-  rotate<p, q>(a, v);
+  rotate<kN, p, q>(a, v);
   if constexpr (q + 1 < kN) {
-    sweep_from<p, q + 1>(a, v);
+    sweep_from<kN, p, q + 1>(a, v);
   } else if constexpr (p + 2 < kN) {
-    sweep_from<p + 1, p + 2>(a, v);
+    sweep_from<kN, p + 1, p + 2>(a, v);
   }
 }
 
+template <int kN>
 __global__ void __launch_bounds__(kThreads)
-eig6_kernel(const float* __restrict__ H, float thresh, float* __restrict__ P,
+eig_kernel(const float* __restrict__ H, float thresh, float* __restrict__ P,
             float* __restrict__ lam, int32_t* __restrict__ sweeps, int B) {
   const int b = blockIdx.x * kThreads + threadIdx.x;
   if (b >= B) return;
@@ -110,7 +115,7 @@ eig6_kernel(const float* __restrict__ H, float thresh, float* __restrict__ P,
       for (int j = i + 1; j < kN; ++j) off += a[i][j] * a[i][j];
     }
     if (off <= 1e-30 * frob) break;   // also a zero matrix (0 <= 0)
-    sweep_from<0, 1>(a, v);
+    sweep_from<kN, 0, 1>(a, v);
   }
 
   float d[kN];
@@ -148,12 +153,16 @@ eig6_kernel(const float* __restrict__ H, float thresh, float* __restrict__ P,
 
 }  // namespace
 
-// H (B, 6, 6) float32 -> P (B, 6, 6) float32, lam (B, 6) float32 ascending,
-// sweeps (B,) int32 (Jacobi sweeps taken).  Returns cudaGetLastError().
+// H (B, n, n) float32 -> P (B, n, n) float32, lam (B, n) float32
+// ascending, sweeps (B,) int32 (Jacobi sweeps taken), for n = 3 or 6.
+// Returns cudaGetLastError().
 extern "C" int lego_eig6(const float* H, float thresh, float* P, float* lam,
-                         int32_t* sweeps, int B, cudaStream_t stream) {
-  if (B < 1) return (int)cudaErrorInvalidValue;
-  eig6_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      H, thresh, P, lam, sweeps, B);
+                         int32_t* sweeps, int B, int n, cudaStream_t stream) {
+  if (B < 1 || (n != 3 && n != 6)) return (int)cudaErrorInvalidValue;
+  const int blocks = (B + kThreads - 1) / kThreads;
+  if (n == 6)
+    eig_kernel<6><<<blocks, kThreads, 0, stream>>>(H, thresh, P, lam, sweeps, B);
+  else
+    eig_kernel<3><<<blocks, kThreads, 0, stream>>>(H, thresh, P, lam, sweeps, B);
   return (int)cudaGetLastError();
 }

@@ -22,9 +22,15 @@
 //    median being the ((n_ok-1)//2)-th smallest base curvature (0 if none);
 //  * then n_corner corner steps (largest curvature, label 2 for the first
 //    n_sharp steps, 1 after) and n_surf surf steps (smallest curvature,
-//    label -1): in each step every sector takes its best eligible cell,
-//    ties to the lowest index, against the same `picked` snapshot, and
-//    marks that cell's reach band picked (not after the last surf step).
+//    label -1), each taking a sector's best eligible cell, ties to the
+//    lowest index, and marking that cell's reach band picked (not after
+//    the last surf step), in one of two orders:
+//      sector_parallel: in each step every sector picks against the same
+//        `picked` snapshot (all corner steps, then all surf steps);
+//      sequential (the reference's order, featureAssociation.cpp:686-770):
+//        sector 0's corner steps, then its surf steps, then sector 1's,
+//        ..., each against the bands of every earlier step.
+//    ops/features.py::pick_features_plain computes both.
 // Nothing at or beyond n can be labelled or picked (each formula ends at
 // n-1, and no wrap-around matters), so only [0, n) is read: 10 bytes a
 // cell (rng, valid, col, ground).
@@ -60,6 +66,17 @@
 //    at least 5 cells; all of them on a shorter ring), clears its cells
 //    inside them in a register bitmask, and marks its own band in the
 //    shared `picked` row, which becomes the output.
+//  * The sequential order (the JAX package runs it as a loop of 144
+//    dependent XLA steps; it has no Pallas kernel): sector j's picks must
+//    see every band of sectors < j, and a band reaches into the next
+//    sector.  So the sectors take turns: S block barriers a scan, one
+//    before each sector.  After its barrier, warp j rebuilds its register
+//    bitmask from the shared `picked` row (which holds every earlier band,
+//    however far it reached: no short-ring case is needed) and runs its 24
+//    steps warp-locally -- the holder of the pick broadcasts its band with
+//    a shuffle, every lane clears its cells inside it, and the band's lanes
+//    mark it in the shared row for the later sectors.  Only one warp a
+//    block works at a time; the blocks (rings) still run side by side.
 //  * Output: labels (int32) and picked (bytes) of the whole row, zero at
 //    and beyond n.
 // Measured on an H100 (PERF.md): ~60 % of the cycles are the 24
@@ -81,6 +98,7 @@ struct LegoFeatureParams {
   int n_corner;     // corner steps (edge_feature_num_less)
   int n_sharp;      // of which labelled 2 (edge_feature_num)
   int n_surf;
+  int sector_parallel;   // 0: the reference's sector-by-sector order
   int use_median;   // edge_prominence > 0
 };
 
@@ -123,6 +141,57 @@ __device__ __forceinline__ void clear_band(uint32_t& pk, int band, int c0,
   const int a = max((band & 0xffff) - c0, 0);
   const int z = min((band >> 16) - c0, nl - 1);
   if (a <= z) pk |= ((2u << (z - a)) - 1u) << a;
+}
+
+// A lane's pick keys for one pass: curvature bits + 1 for a corner cell
+// (non-ground base cell above thr), ~bits for a surf cell (ground base
+// cell below surf_thr), 0 for none; a larger key is a better pick.
+template <int CPL>
+__device__ __forceinline__ void load_keys(uint32_t (&key)[CPL], bool surf,
+                                          int c0, int nl, const float* s_curv,
+                                          const uint8_t* s_flag, float thr,
+                                          float surf_thr) {
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    key[j] = 0;
+    if (j < nl) {
+      const float cv = s_curv[c0 + j];
+      const uint8_t f = s_flag[c0 + j] & (kBase | kGround);
+      if (!surf && f == kBase && cv > thr) key[j] = __float_as_uint(cv) + 1u;
+      if (surf && f == (kBase | kGround) && cv < surf_thr)
+        key[j] = ~__float_as_uint(cv);
+    }
+  }
+}
+
+// One pick step of a warp over its sector: the best key among the
+// unpicked cells (ties to the lowest cell: runs ascend with the lane), its
+// label written.  Returns the lane holding the pick (-1 if the sector has
+// none); that lane's `band` is the pick's band (lo | hi << 16), or kNoBand
+// if !mark; every other lane's is kNoBand.
+template <int CPL>
+__device__ __forceinline__ int pick_step(const uint32_t (&key)[CPL],
+                                         uint32_t pk, int c0,
+                                         uint64_t reach_lo, uint64_t reach_hi,
+                                         int lane, int label, bool mark,
+                                         int8_t* s_lab, int& band) {
+  uint32_t v[CPL];
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) v[j] = (pk >> j) & 1u ? 0u : key[j];
+  const uint32_t best = __reduce_max_sync(kFull, tree_max<CPL>(v));
+  band = kNoBand;
+  if (best == 0) return -1;
+  const uint32_t eq = eq_mask<CPL>(v, best);
+  const int holder = __ffs(__ballot_sync(kFull, eq != 0)) - 1;
+  if (lane == holder) {
+    const int jj = __ffs(eq) - 1;
+    const int cell = c0 + jj;
+    const int code =
+        (int)(((jj < 8 ? reach_lo : reach_hi) >> (8 * (jj & 7))) & 0xff);
+    s_lab[cell] = (int8_t)label;
+    if (mark) band = (cell - (code & 15)) | ((cell + (code >> 4)) << 16);
+  }
+  return holder;
 }
 
 __device__ __forceinline__ int floor_div6(int a) {
@@ -319,75 +388,76 @@ __global__ void label_features_kernel(const float* __restrict__ rng,
   uint32_t pk = 0;                       // this lane's picked cells
 #pragma unroll
   for (int j = 0; j < CPL; ++j) {
-    key[j] = 0;
     if (j < nl) {
       const int c = c0 + j;
-      const float cv = s_curv[c];
-      if ((s_flag[c] & (kBase | kGround)) == kBase && cv > thr)
-        key[j] = __float_as_uint(cv) + 1u;
       if (s_pick[c]) pk |= 1u << j;
       const uint64_t code = s_reach[c];
       if (j < 8) reach_lo |= code << (8 * j);
       else reach_hi |= code << (8 * (j & 7));
     }
   }
+  load_keys<CPL>(key, false, c0, nl, s_curv, s_flag, thr, p.surf_threshold);
 
   const int T = p.n_corner + p.n_surf;
-  int buf = 0;
-  for (int t = 0; t < T; ++t) {
-    const bool surf = t >= p.n_corner;
-    if (t == p.n_corner) {
+  if (p.sector_parallel) {
+    int buf = 0;
+    for (int t = 0; t < T; ++t) {
+      const bool surf = t >= p.n_corner;
       // the surf pass: ground cells, the smallest curvature first
+      if (t == p.n_corner)
+        load_keys<CPL>(key, true, c0, nl, s_curv, s_flag, thr, p.surf_threshold);
+      int band;
+      // the last surf step marks no band
+      const int holder = pick_step<CPL>(
+          key, pk, c0, reach_lo, reach_hi, lane,
+          surf ? -1 : (t < p.n_sharp ? 2 : 1), !(surf && t == T - 1), s_lab,
+          band);
+      if (lane == max(holder, 0)) s_slot[buf][warp] = band;
+      __syncthreads();
+      {
+        // the step's bands (warps without a sector publish none): those of
+        // this sector and its neighbours, or all of them on a short ring
+        const int own = s_slot[buf][warp];
+        if (near_only) {
+          clear_band(pk, own, c0, nl);
+          clear_band(pk, s_slot[buf][max(warp - 1, 0)], c0, nl);
+          clear_band(pk, s_slot[buf][min(warp + 1, kMaxSectors - 1)], c0, nl);
+        } else {
+          const int4 b0 = reinterpret_cast<const int4*>(s_slot[buf])[0];
+          const int4 b1 = reinterpret_cast<const int4*>(s_slot[buf])[1];
+          const int bands[kMaxSectors] = {b0.x, b0.y, b0.z, b0.w,
+                                          b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int j = 0; j < CPL; ++j) {
-        key[j] = 0;
-        if (j < nl) {
-          const int c = c0 + j;
-          const float cv = s_curv[c];
-          if ((s_flag[c] & (kBase | kGround)) == (kBase | kGround) &&
-              cv < p.surf_threshold)
-            key[j] = ~__float_as_uint(cv);
+          for (int s = 0; s < kMaxSectors; ++s) clear_band(pk, bands[s], c0, nl);
         }
+        if (lane <= (own >> 16) - (own & 0xffff)) s_pick[(own & 0xffff) + lane] = 1;
       }
+      buf ^= 1;
     }
-    uint32_t v[CPL];
+  } else {
+    // the reference's order: the sectors take turns, one barrier each
+    for (int s = 0; s < S; ++s) {
+      __syncthreads();   // every band of sectors < s is in s_pick
+      if (warp != s) continue;
+      pk = 0;
 #pragma unroll
-    for (int j = 0; j < CPL; ++j) v[j] = (pk >> j) & 1u ? 0u : key[j];
-    const uint32_t best = __reduce_max_sync(kFull, tree_max<CPL>(v));
-    if (best != 0) {
-      const uint32_t eq = eq_mask<CPL>(v, best);
-      if (lane == __ffs(__ballot_sync(kFull, eq != 0)) - 1) {
-        const int jj = __ffs(eq) - 1;
-        const int cell = c0 + jj;
-        const int code = (int)(((jj < 8 ? reach_lo : reach_hi) >> (8 * (jj & 7))) & 0xff);
-        s_lab[cell] = surf ? -1 : (t < p.n_sharp ? 2 : 1);
-        // the last surf step marks no band
-        s_slot[buf][warp] = surf && t == T - 1
-            ? kNoBand : (cell - (code & 15)) | ((cell + (code >> 4)) << 16);
+      for (int j = 0; j < CPL; ++j)
+        if (j < nl && s_pick[c0 + j]) pk |= 1u << j;
+      for (int t = 0; t < T; ++t) {
+        const bool surf = t >= p.n_corner;
+        if (t == p.n_corner)
+          load_keys<CPL>(key, true, c0, nl, s_curv, s_flag, thr, p.surf_threshold);
+        int band;
+        const int holder = pick_step<CPL>(
+            key, pk, c0, reach_lo, reach_hi, lane,
+            surf ? -1 : (t < p.n_sharp ? 2 : 1), !(surf && t == T - 1), s_lab,
+            band);
+        if (holder >= 0) band = __shfl_sync(kFull, band, holder);
+        clear_band(pk, band, c0, nl);
+        if (lane <= (band >> 16) - (band & 0xffff))
+          s_pick[(band & 0xffff) + lane] = 1;
       }
-    } else if (lane == 0) {
-      s_slot[buf][warp] = kNoBand;
     }
-    __syncthreads();
-    {
-      // the step's bands (warps without a sector publish none): those of
-      // this sector and its neighbours, or all of them on a short ring
-      const int own = s_slot[buf][warp];
-      if (near_only) {
-        clear_band(pk, own, c0, nl);
-        clear_band(pk, s_slot[buf][max(warp - 1, 0)], c0, nl);
-        clear_band(pk, s_slot[buf][min(warp + 1, kMaxSectors - 1)], c0, nl);
-      } else {
-        const int4 b0 = reinterpret_cast<const int4*>(s_slot[buf])[0];
-        const int4 b1 = reinterpret_cast<const int4*>(s_slot[buf])[1];
-        const int band[kMaxSectors] = {b0.x, b0.y, b0.z, b0.w,
-                                       b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int s = 0; s < kMaxSectors; ++s) clear_band(pk, band[s], c0, nl);
-      }
-      if (lane <= (own >> 16) - (own & 0xffff)) s_pick[(own & 0xffff) + lane] = 1;
-    }
-    buf ^= 1;
   }
   __syncthreads();
 

@@ -50,8 +50,8 @@ _SIGNATURES = {
     "lego_label_features": [_P] * 7 + [_I] * 2 + [_P] * 2,
     # query, ref, ref_valid, B, Q, N, k, S, scratch, idx, d2, stream
     "lego_knn": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # H, thresh, P, lam, sweeps, B, stream
-    "lego_eig6": [_P, ctypes.c_float, _P, _P, _P, _I, _P],
+    # H, thresh, P, lam, sweeps, B, n, stream
+    "lego_eig6": [_P, ctypes.c_float, _P, _P, _P, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -2,14 +2,22 @@
 (counterpart of ``lego_loam_tpu.models.odometry``;
 featureAssociation.cpp:1044-1725).
 
-The port runs the "block" schedule (the default) and "joint": both
-constraint sets every iteration, 5 association rounds x 5 GN steps, with
-"block" zeroing the cross-block Jacobian entries so the normal equations
-decouple into (pitch, roll, tz) / (yaw, tx, ty).  The JAX package takes
-Jacobians by forward-mode autodiff through the linear motion chart
-q(w, v) = q0 + w x q0 + v; here they are written out: for a residual with
-gradient g in the point, the row is (q0 x g, g).  The fori_loops with done
-masks are Python loops with torch.where, so the loop needs no host sync.
+Three schedules, as in the JAX package: "block" (the default) and "joint"
+take both constraint sets every iteration, 5 association rounds x 5 GN
+steps, with "block" zeroing the cross-block Jacobian entries so the
+normal equations decouple into (pitch, roll, tz) / (yaw, tx, ty);
+"two_step" is the reference's split (featureAssociation.cpp:1270-1478),
+a surf phase on (pitch, roll, tz) and then a corner phase on (yaw, tx,
+ty), each 5 x 5 GN steps on 3 degrees of freedom.  The surf residual is a
+5-point least-squares plane (odom_surf_fit="knn") or the reference's
+3-point plane ("tri", featureAssociation.cpp:1163-1249).  The JAX package
+takes Jacobians by forward-mode autodiff through the linear motion chart
+q(w, v) = q0 + w x q0 + v, (w, v) = chart x; here they are written out:
+for a residual with gradient g in the point, the 6-DoF row is (q0 x g, g)
+and a phase's chart keeps its columns.  The fori_loops with done masks
+are Python loops with torch.where, so the loop needs no host sync; the
+3x3 solve is closed-form (ops/lin3.py) and the 3x3 degeneracy projection
+is kernel E1 on the card, as the 6x6 one is.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 from lego_loam_tpu_torch.config import PipelineConfig
 from lego_loam_tpu_torch.ops.eig6 import degeneracy_projection
 from lego_loam_tpu_torch.ops.knn import masked_argmin, sq_dist_matrix
+from lego_loam_tpu_torch.ops.lin3 import solve3
 from lego_loam_tpu_torch.types import FeatureCloud, ScanFeatures, empty_feature_cloud
 from lego_loam_tpu_torch.utils.math3d import Pose, project_so3, so3_exp, so3_log
 
@@ -83,6 +92,29 @@ def _assoc_corner(rel: Pose, sharp: FeatureCloud, ref: FeatureCloud, cfg):
     return i1, i2, sharp.valid & (v1 < thr) & (v2 < thr)
 
 
+def _assoc_surf(rel: Pose, flat: FeatureCloud, ref: FeatureCloud, cfg):
+    """3-point plane association (odom_surf_fit="tri"): j1 = nearest; j2 =
+    nearest in the same ring, j1 excluded; j3 = nearest in a ring within
+    +-2 (featureAssociation.cpp:1163-1226).  With cfg.odom_class_gate every
+    candidate, j1 too, must share the query's ground label."""
+    q = warp_to_start(rel, flat.xyz, flat.s)
+    d2 = sq_dist_matrix(q, ref.xyz, ref.valid)
+    same = None
+    if cfg.odom_class_gate and flat.ground is not None and ref.ground is not None:
+        same = ref.ground[None, :] == flat.ground[:, None]
+    i1, v1 = masked_argmin(d2, same)
+    dr = ref.ring[None, :] - ref.ring[i1][:, None]
+    cols = torch.arange(d2.shape[1], device=d2.device)[None, :]
+    m2 = (dr == 0) & (cols != i1[:, None])
+    m3 = (dr != 0) & (dr.abs() <= 2)
+    if same is not None:
+        m2, m3 = m2 & same, m3 & same
+    i2, v2 = masked_argmin(d2, m2)
+    i3, v3 = masked_argmin(d2, m3)
+    thr = cfg.nearest_feature_search_sq_dist
+    return i1, i2, i3, flat.valid & (v1 < thr) & (v2 < thr) & (v3 < thr)
+
+
 def _assoc_surf_knn(rel: Pose, flat: FeatureCloud, ref: FeatureCloud, cfg):
     """5-point least-squares plane association (odom_surf_fit="knn"):
     nearest + two same-ring + two adjacent-ring reference points, fitted
@@ -132,6 +164,15 @@ def _corner_distance(q, a, b):
     return torch.sum(n * perp, -1), g
 
 
+def _surf_distance(q, a, b, c):
+    """Signed point-to-plane residual of the plane through a, b, c
+    (featureAssociation.cpp:1234-1249).  Returns (d, grad_q): the unit
+    normal, with a, b and c held fixed."""
+    n = torch.linalg.cross(b - a, c - a, dim=-1)
+    n = n / _safe_norm(n, keepdim=True)
+    return torch.sum(n * (q - a), dim=-1), n
+
+
 def _chart_rows(q0: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Jacobian rows in (w, v) of a residual with point gradient g through
     q = q0 + w x q0 + v: d/dw = q0 x g, d/dv = g."""
@@ -160,20 +201,38 @@ def solve6(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(x), x, 0.0)
 
 
+# a phase's chart: the se(3) directions (w, v) it solves, as columns of
+# the 6-DoF Jacobian.  The surf phase solves (pitch wy, roll wx, vz), the
+# corner phase (yaw wz, vx, vy); None is all six in order
+_SURF_CHART = (1, 0, 5)
+_CORNER_CHART = (2, 3, 4)
+
+
+def _chart_matrix(cols, device) -> torch.Tensor:
+    """(6, dof) 0/1 matrix of a chart (built on the device: a tensor
+    literal would be a host copy)."""
+    eye = torch.eye(6, dtype=torch.float32, device=device)
+    return torch.stack([eye[:, c] for c in cols], dim=1)
+
+
 def _degeneracy_projection(H, thresh):
     """P = V diag(lam >= thresh) V^T: zero the eigen-directions whose
-    eigenvalue is below thresh (featureAssociation.cpp:1329-1356).  Kernel
-    E1 on the card (ops/eig6.py): no host sync."""
+    eigenvalue is below thresh (featureAssociation.cpp:1329-1356), for a
+    6x6 or a 3x3 H.  Kernel E1 on the card (ops/eig6.py): no host sync."""
     return degeneracy_projection(H, thresh)[0]
 
 
 def _gn_iteration(rel, pts, s, resid_at, cfg, med, compute_scale: bool,
-                  jac_mask=None):
+                  jac_mask=None, chart=None):
     """One GN step: residuals at the de-skewed points q0, Jacobian through
-    the linear chart.  resid_at(q0) -> (d, qn, ok, grad_q)."""
+    the linear chart.  resid_at(q0) -> (d, qn, ok, grad_q).  `chart` is a
+    phase's (cols, (6, dof) matrix), None for all six directions.  Returns
+    (x (dof,), the unweighted H (dof, dof), constraints kept, scale)."""
     q0 = warp_to_start(rel, pts, s)
     d0, qn, ok, grad = resid_at(q0)
     J = _chart_rows(q0, grad)
+    if chart is not None:
+        J = torch.stack([J[:, c] for c in chart[0]], dim=1)
     if jac_mask is not None:
         J = J * jac_mask
     absd = d0.abs()
@@ -188,21 +247,31 @@ def _gn_iteration(rel, pts, s, resid_at, cfg, med, compute_scale: bool,
     # degeneracy analysis uses the UNWEIGHTED system (reference eigen
     # thresholds are calibrated against unit-weight rows)
     Au = J * keep[:, None].to(J.dtype)
-    x = solve6(A.T @ A, A.T @ b)
-    rot_n = _safe_norm(x[:3])
-    trans_n = _safe_norm(x[3:])
+    if chart is None:
+        x = solve6(A.T @ A, A.T @ b)
+        xi = x
+    else:
+        # closed-form 3x3 solve, as the JAX package takes it at 3 DoF
+        H = A.T @ A + 1e-6 * torch.eye(3, dtype=A.dtype, device=A.device)
+        x = solve3(H, A.T @ b)
+        x = torch.where(torch.isfinite(x), x, 0.0)
+        xi = chart[1] @ x
+    rot_n = _safe_norm(xi[:3])
+    trans_n = _safe_norm(xi[3:])
     scale = torch.clamp(torch.minimum(math.radians(cfg.odom_max_step_rot_deg) / rot_n,
                                       cfg.odom_max_step_trans / trans_n), max=1.0)
     return x * scale, Au.T @ Au, keep.sum(), med
 
 
-def _phase(rel0, pts, s, make_assoc, make_resid, cfg, jac_mask=None):
+def _phase(rel0, pts, s, make_assoc, make_resid, cfg, jac_mask=None, cols=None):
     """Association rounds x GN steps with convergence freezing
-    (featureAssociation.cpp:1666-1695)."""
+    (featureAssociation.cpp:1666-1695), on all six directions or on a
+    chart's `cols`."""
     dev = pts.device
+    chart = None if cols is None else (cols, _chart_matrix(cols, dev))
     refresh_each_iter = cfg.odom_scale_refresh == "iter"
     rel = rel0
-    P = torch.eye(6, dtype=torch.float32, device=dev)
+    P = torch.eye(6 if cols is None else len(cols), dtype=torch.float32, device=dev)
     med = torch.zeros((), dtype=torch.float32, device=dev)
     for _ in range(cfg.odom_outer_iters):
         resid_at = make_resid(make_assoc(rel))
@@ -213,15 +282,16 @@ def _phase(rel0, pts, s, make_assoc, make_resid, cfg, jac_mask=None):
             x, H, n_keep, med = _gn_iteration(
                 rel, pts, s, resid_at, cfg, med,
                 compute_scale=round_start or refresh_each_iter,
-                jac_mask=jac_mask)
+                jac_mask=jac_mask, chart=chart)
             if round_start:
                 # projection refreshed once per association round
                 P = _degeneracy_projection(H, cfg.odom_degen_eig_thresh)
             x = P @ x
+            xi = x if chart is None else chart[1] @ x
             apply = ~done & (n_keep >= cfg.odom_min_constraints)
-            rel = select_pose(apply, Pose(so3_exp(x[:3]) @ rel.R, rel.t + x[3:]), rel)
-            d_rot = torch.rad2deg(torch.linalg.vector_norm(x[:3]))
-            d_trans = 100.0 * torch.linalg.vector_norm(x[3:])
+            rel = select_pose(apply, Pose(so3_exp(xi[:3]) @ rel.R, rel.t + xi[3:]), rel)
+            d_rot = torch.rad2deg(torch.linalg.vector_norm(xi[:3]))
+            d_trans = 100.0 * torch.linalg.vector_norm(xi[3:])
             done = done | (apply & (d_rot < cfg.odom_delta_rot_deg)
                            & (d_trans < cfg.odom_delta_trans_cm))
     return rel
@@ -233,12 +303,6 @@ def odometry_step(state: OdometryState, feats: ScanFeatures, cfg: PipelineConfig
     On the first scan (empty references) the solve is a no-op and the pose
     stays at the seed (checkSystemInitialization,
     featureAssociation.cpp:1605-1637)."""
-    if cfg.odom_mode not in ("block", "joint"):
-        raise NotImplementedError(
-            f"odom_mode={cfg.odom_mode!r}: the port runs 'block' and 'joint'")
-    if cfg.odom_surf_fit != "knn":
-        raise NotImplementedError(
-            f"odom_surf_fit={cfg.odom_surf_fit!r}: the port runs 'knn'")
     sharp, flat = feats.sharp, feats.flat
     if not cfg.deskew:
         # motion-compensated input: s = 1 everywhere makes the warps the
@@ -252,37 +316,85 @@ def odometry_step(state: OdometryState, feats: ScanFeatures, cfg: PipelineConfig
     n_ref_c = ref_c.valid.sum()
     n_ref_s = ref_s.valid.sum()
     gate = (n_ref_c >= cfg.odom_min_last_corner) & (n_ref_s >= cfg.odom_min_last_surf)
+    knn_surf = cfg.odom_surf_fit == "knn"
 
-    F = flat.xyz.shape[0]
-    pts = torch.cat([flat.xyz, sharp.xyz], dim=0)
-    ss = torch.cat([flat.s, sharp.s], dim=0)
+    def surf_assoc(rel):
+        return (_assoc_surf_knn(rel, flat, ref_s, cfg) if knn_surf
+                else _assoc_surf(rel, flat, ref_s, cfg))
 
-    def assoc(rel):
-        return _assoc_surf_knn(rel, flat, ref_s, cfg), _assoc_corner(rel, sharp, ref_c, cfg)
+    def surf_rows(a):
+        """q -> (d, grad_q, ok) of the surf constraints of association a."""
+        if knn_surf:
+            pn, pd, oks = a
+            return lambda q: (torch.sum(pn * q, dim=-1) + pd, pn, oks)
+        i1, i2, i3, oks = a
+        pa, pb, pc = ref_s.xyz[i1], ref_s.xyz[i2], ref_s.xyz[i3]
+        return lambda q: (*_surf_distance(q, pa, pb, pc), oks)
 
-    def make_resid(a):
-        (pn, pd, oks), (j1, j2, okc) = a
+    def corner_rows(a):
+        j1, j2, okc = a
         ca, cb = ref_c.xyz[j1], ref_c.xyz[j2]
+        return lambda q: (*_corner_distance(q, ca, cb), okc)
 
-        def resid_at(q):
-            qs, qc = q[:F], q[F:]
-            ds = torch.sum(pn * qs, dim=-1) + pd
-            dc, gc = _corner_distance(qc, ca, cb)
-            qn = torch.cat([torch.sqrt(torch.sqrt(_safe_norm(qs))), torch.ones_like(dc)])
-            return (torch.cat([ds, dc]), qn, torch.cat([oks, okc]),
-                    torch.cat([pn, gc]))
-        return resid_at
+    def surf_qn(q):
+        return torch.sqrt(torch.sqrt(_safe_norm(q)))
 
-    jac_mask = None
-    if cfg.odom_mode == "block":
-        # surf rows drive (pitch wy, roll wx, vz); corner rows (yaw wz, vx, vy)
-        # (built on the device: a torch.tensor literal would be a host copy)
-        col = torch.arange(6, device=pts.device)
-        surf_cols = ((col < 2) | (col == 5)).to(torch.float32)
-        row_is_surf = (torch.arange(pts.shape[0], device=pts.device) < F).to(torch.float32)
-        jac_mask = (row_is_surf[:, None] * surf_cols[None, :]
-                    + (1.0 - row_is_surf)[:, None] * (1.0 - surf_cols)[None, :])
-    rel = _phase(state.rel, pts, ss, assoc, make_resid, cfg, jac_mask=jac_mask)
+    if cfg.odom_mode in ("joint", "block"):
+        F = flat.xyz.shape[0]
+        pts = torch.cat([flat.xyz, sharp.xyz], dim=0)
+        ss = torch.cat([flat.s, sharp.s], dim=0)
+
+        def assoc(rel):
+            return surf_assoc(rel), _assoc_corner(rel, sharp, ref_c, cfg)
+
+        def make_resid(a):
+            surf, corner = surf_rows(a[0]), corner_rows(a[1])
+
+            def resid_at(q):
+                qs, qc = q[:F], q[F:]
+                ds, gs, oks = surf(qs)
+                dc, gc, okc = corner(qc)
+                qn = torch.cat([surf_qn(qs), torch.ones_like(dc)])
+                return (torch.cat([ds, dc]), qn, torch.cat([oks, okc]),
+                        torch.cat([gs, gc]))
+            return resid_at
+
+        jac_mask = None
+        if cfg.odom_mode == "block":
+            # surf rows drive (pitch wy, roll wx, vz); corner rows (yaw wz,
+            # vx, vy) (built on the device: a torch.tensor literal would be
+            # a host copy)
+            col = torch.arange(6, device=pts.device)
+            surf_cols = ((col < 2) | (col == 5)).to(torch.float32)
+            row_is_surf = (torch.arange(pts.shape[0], device=pts.device) < F).to(torch.float32)
+            jac_mask = (row_is_surf[:, None] * surf_cols[None, :]
+                        + (1.0 - row_is_surf)[:, None] * (1.0 - surf_cols)[None, :])
+        rel = _phase(state.rel, pts, ss, assoc, make_resid, cfg, jac_mask=jac_mask)
+    else:
+        # two_step: the surf phase on (pitch, roll, tz), then the corner
+        # phase on (yaw, tx, ty) from its result
+        def surf_resid(a):
+            surf = surf_rows(a)
+
+            def resid_at(q):
+                d, g, ok = surf(q)
+                return d, surf_qn(q), ok, g
+            return resid_at
+
+        def corner_resid(a):
+            corner = corner_rows(a)
+
+            def resid_at(q):
+                d, g, ok = corner(q)
+                # corner weights are not range-normalised
+                return d, torch.ones_like(d), ok, g
+            return resid_at
+
+        rel = _phase(state.rel, flat.xyz, flat.s, surf_assoc, surf_resid, cfg,
+                     cols=_SURF_CHART)
+        rel = _phase(rel, sharp.xyz, sharp.s,
+                     lambda rel: _assoc_corner(rel, sharp, ref_c, cfg),
+                     corner_resid, cfg, cols=_CORNER_CHART)
     rel = select_pose(gate, rel, state.rel)
 
     # first scan: the map frame IS this scan's frame

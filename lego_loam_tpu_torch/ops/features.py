@@ -1,13 +1,15 @@
 """Curvature-based edge/planar feature extraction
 (counterpart of ``lego_loam_tpu.ops.features``; featureAssociation.cpp:621-784).
 
-All rings run in parallel and, in the sector_parallel mode the port
-supports, all six sectors of a ring pick at once; the ranked picks within a
-sector stay sequential (every pick suppresses neighbours that later picks
-must see).  On a CUDA scan the whole label step (curvature, occlusion
-mask, reach, ring median, sector picks) is kernel K2
-(``csrc/pick_features.cu``), one launch; on a CPU scan it is the plain
-prep and pick loop below.
+All rings run in parallel.  With cfg.sector_parallel (the default) all six
+sectors of a ring pick at once; without it the sectors pick one after the
+other in the reference's order, each sector's corner pass and then its
+surf pass against the picks of every earlier pass.  The ranked picks within
+a sector stay sequential either way (every pick suppresses neighbours that
+later picks must see).  On a CUDA scan the whole label step (curvature,
+occlusion mask, reach, ring median, sector picks in either order) is
+kernel K2 (``csrc/pick_features.cu``), one launch; on a CPU scan it is the
+plain prep and pick loop below.
 """
 
 from __future__ import annotations
@@ -96,27 +98,32 @@ def _suppress_reach(col: torch.Tensor, count: torch.Tensor, cfg):
 
 def pick_features_plain(curv, corner_base, surf_base, picked0, reach_l,
                         reach_r, sp_all, ep_all, ok_all, n_sectors: int,
-                        n_corner: int, n_sharp: int, n_surf: int):
-    """The sector_parallel pick loop (lego_loam_tpu/ops/features.py:169-221):
-    per step every sector takes its masked argmax (ties to the lowest
-    index) against the same `picked` snapshot, labels it and suppresses its
-    reach band.  Returns (labels (R, W) int32, picked (R, W) bool)."""
+                        n_corner: int, n_sharp: int, n_surf: int,
+                        sector_parallel: bool):
+    """The pick loops of lego_loam_tpu/ops/features.py:169-238.  Each step
+    takes the masked argmax (ties to the lowest index) of every sector in
+    play, labels it and suppresses its reach band.  sector_parallel: all
+    sectors in play at once, against the same `picked` snapshot, the
+    corner pass and then the surf pass; otherwise the reference's order,
+    sector by sector, its corner pass and then its surf pass.  The surf
+    pass marks no band for its last pick.  Returns (labels (R, W) int32,
+    picked (R, W) bool)."""
     R, W = curv.shape
     dev = curv.device
     idxs = torch.arange(W, dtype=torch.int32, device=dev)
     in_sec = ((idxs[None, None, :] >= sp_all[:, :, None])
               & (idxs[None, None, :] <= ep_all[:, :, None])
               & ok_all[:, :, None])                          # (R, S, W)
-    rows = torch.arange(R, device=dev).repeat_interleave(n_sectors)
     labels = torch.zeros((R, W), dtype=torch.int32, device=dev)
     picked = picked0.clone()
 
-    def run(base, sign, n_picks, label_of, suppress_last):
+    def run(sector_mask, base, sign, n_picks, label_of, suppress_last):
         nonlocal labels, picked
+        rows = torch.arange(R, device=dev).repeat_interleave(sector_mask.shape[1])
         for k in range(n_picks):
-            elig = base[:, None, :] & in_sec & ~picked[:, None, :]
+            elig = base[:, None, :] & sector_mask & ~picked[:, None, :]
             score = torch.where(elig, sign * curv[:, None, :], _NEG_INF)
-            idx = torch.argmax(score, dim=2)                     # (R, S)
+            idx = torch.argmax(score, dim=2)                     # (R, S')
             has = elig.any(dim=2)
             idx_v = idx.reshape(-1)
             cur = labels[rows, idx_v]
@@ -129,8 +136,16 @@ def pick_features_plain(curv, corner_base, surf_base, picked0, reach_l,
                     & sup[:, :, None])
             picked = picked | band.any(dim=1)
 
-    run(corner_base, 1.0, n_corner, lambda k: 2 if k < n_sharp else 1, True)
-    run(surf_base, -1.0, n_surf, lambda k: -1, False)
+    def both(sector_mask):
+        run(sector_mask, corner_base, 1.0, n_corner,
+            lambda k: 2 if k < n_sharp else 1, True)
+        run(sector_mask, surf_base, -1.0, n_surf, lambda k: -1, False)
+
+    if sector_parallel:
+        both(in_sec)
+    else:
+        for j in range(n_sectors):
+            both(in_sec[:, j:j + 1])
     return labels, picked
 
 
@@ -171,15 +186,16 @@ def pick_inputs(packed: SegmentedScan, cfg: PipelineConfig):
 _FLOAT_PARAMS = ("edge_threshold", "edge_prominence", "surf_threshold",
                  "occlusion_depth_gap", "parallel_beam_frac")
 _INT_PARAMS = ("occlusion_col_diff", "sections_total", "edge_feature_num_less",
-               "edge_feature_num", "surf_feature_num", "use_median")
+               "edge_feature_num", "surf_feature_num", "sector_parallel",
+               "use_median")
 
 
 def label_features_plain(packed: SegmentedScan, cfg: PipelineConfig):
     """K2's plain version: the prep of :func:`pick_inputs`, then the pick
-    loop :func:`pick_features_plain`."""
+    loop :func:`pick_features_plain` in cfg.sector_parallel's order."""
     return pick_features_plain(*pick_inputs(packed, cfg), cfg.sections_total,
                                cfg.edge_feature_num_less, cfg.edge_feature_num,
-                               cfg.surf_feature_num)
+                               cfg.surf_feature_num, bool(cfg.sector_parallel))
 
 
 class _Params(ctypes.Structure):
@@ -232,15 +248,12 @@ def _check_k2_fits(S: int, W: int) -> None:
 
 def label_features(packed: SegmentedScan, cfg: PipelineConfig):
     """Returns the label grid (2 sharp, 1 less-sharp, -1 flat, 0 none) and
-    the final picked mask (sector_parallel pick order).  A CUDA scan
-    launches K2 (``csrc/pick_features.cu``, the whole step in one launch,
-    from rng / valid / col / ground / count); a CPU scan runs
+    the final picked mask, in cfg.sector_parallel's pick order.  A CUDA
+    scan launches K2 (``csrc/pick_features.cu``, the whole step in one
+    launch, from rng / valid / col / ground / count); a CPU scan runs
     :func:`label_features_plain`.  The packed fields may carry leading
     batch dimensions; under torch.func.vmap the batch goes into the same
     launch (one block a ring of every scan)."""
-    if not cfg.sector_parallel:
-        raise NotImplementedError(
-            "the port implements the sector_parallel pick order only")
     return _label_features_op(
         packed.rng, packed.valid, packed.col, packed.ground, packed.count,
         [float(getattr(cfg, f)) for f in _FLOAT_PARAMS],
@@ -294,10 +307,13 @@ def _launch_label_features(rng, valid, col, ground, count, fparams, iparams):
         count.numel(), W, _params(fparams, iparams), kb.stream_of(rng)),
         "label_features")
     label_features.launches += 1
+    if not iparams[_INT_PARAMS.index("sector_parallel")]:
+        label_features.launches_sequential += 1
     return labels, picked
 
 
 label_features.launches = 0
+label_features.launches_sequential = 0    # of which in the sequential order
 
 
 def extract_features(packed: SegmentedScan, outlier_s: torch.Tensor,

@@ -233,3 +233,31 @@ def test_pipeline_compacts_only_at_capacity():
     pipe.n_kf_bound = tcfg.max_keyframes - 1
     pipe._maybe_compact()
     assert pipe.n_kf_bound == 6 and int(pipe.mstate.n_kf) == 6
+
+
+ODOM_MODES = [dict(odom_mode=m, odom_surf_fit=f, odom_class_gate=g)
+              for m in ("block", "joint", "two_step")
+              for f, g in (("knn", True), ("tri", True), ("tri", False))]
+
+
+@pytest.mark.parametrize("over", ODOM_MODES,
+                         ids=lambda o: "-".join(map(str, o.values())))
+def test_odometry_step_modes(run, over):
+    """odometry_step in every schedule (block, joint, two_step) with either
+    surf fit (the 5-point "knn" plane, the reference's 3-point "tri" plane
+    with and without the ground-label gate) against the JAX package's,
+    from scan 2's state and features: pose and rel within POS_TOL /
+    ROT_TOL_DEG (5 mm / 0.05 deg), the module's bound, and equal
+    reference-cloud masks."""
+    jcfg, tcfg = JCFG.replace(**over), TCFG.replace(**over)
+    jstate, jfeats = run["ostates"][2], run["feats"][2]
+    jnew, jpose, jrel = jax.device_get(jodo.odometry_step(jstate, jfeats, jcfg))
+    tnew, tpose, trel = todo.odometry_step(state_from_numpy(jstate, "cpu"),
+                                           state_from_numpy(jfeats, "cpu"), tcfg)
+    _assert_pose_close(jrel, trel)
+    _assert_pose_close(jpose, tpose)
+    # the scan really moved: the solve is not the identity seed
+    assert float(np.linalg.norm(np.asarray(jrel.t))) > 0.05
+    for cloud in ("ref_corner", "ref_surf"):
+        np.testing.assert_array_equal(getattr(tnew, cloud).valid.numpy(),
+                                      getattr(jnew, cloud).valid)

@@ -1,5 +1,5 @@
 """E1, the degeneracy projection P = V diag(lam >= thresh) V^T of a
-symmetric 6x6 system (lego_loam_tpu_torch/ops/eig6.py), on the CPU.
+symmetric 6x6 or 3x3 system (lego_loam_tpu_torch/ops/eig6.py), on the CPU.
 
   * the plain version (float32 eigh), what a CPU pipeline runs, against
     the JAX package's _degeneracy_projection on seeded spectra
@@ -12,7 +12,8 @@ symmetric 6x6 system (lego_loam_tpu_torch/ops/eig6.py), on the CPU.
     cyclic sweeps, rotation formula, stopping rule and keep test as
     csrc/eig6.cu), against the same references: it converges on every
     spectrum, exact zeros and repeated eigenvalues included, in at most 8
-    sweeps;
+    sweeps; the same at 3x3, the two-step odometry's systems, on the 3x3
+    spectra (plain version and mirror, the same bounds);
   * the near-threshold case: an eigenvalue closer to the threshold than
     float32 eigh's rounding gap (~1e-7 of |H|) can be kept by the float64
     solve and dropped by float32 eigh, or the other way; then P differs by
@@ -35,18 +36,19 @@ P_TOL, LAM_TOL = 1e-5, 1e-5
 
 
 def _jacobi6(H: np.ndarray, thresh: float, max_sweeps: int = 32):
-    """csrc/eig6.cu's arithmetic in float64 NumPy: (P float32, lam float32
-    ascending, sweeps)."""
+    """csrc/eig6.cu's arithmetic in float64 NumPy, for an (n, n) H (n = 6
+    or 3): (P float32, lam float32 ascending, sweeps)."""
+    n = H.shape[0]
     a = 0.5 * (H.astype(np.float64) + H.astype(np.float64).T)
-    v = np.eye(6)
+    v = np.eye(n)
     frob = float((a * a).sum())
     s = 0
     while s < max_sweeps:
-        off = sum(a[p, q] ** 2 for p in range(6) for q in range(p + 1, 6))
+        off = sum(a[p, q] ** 2 for p in range(n) for q in range(p + 1, n))
         if off <= 1e-30 * frob:
             break
-        for p in range(5):
-            for q in range(p + 1, 6):
+        for p in range(n - 1):
+            for q in range(p + 1, n):
                 apq = a[p, q]
                 if apq == 0.0:
                     continue
@@ -102,6 +104,35 @@ def test_kernel_algorithm_matches_jax_and_plain(thresh):
     P_plain, _ = e1.degeneracy_projection(Hs, thresh)
     np.testing.assert_allclose(P_plain.numpy(), np.stack([p for _, p in batch]),
                                atol=P_TOL)
+
+
+@pytest.mark.parametrize("thresh", THRESHOLDS)
+def test_3x3_plain_and_kernel_algorithm_match_jax(thresh):
+    """At 3x3 (the two-step odometry's phases): the plain version, batched
+    and one matrix a call, and the kernel's mirror against the JAX
+    package's _degeneracy_projection on the 3x3 spectra, at the 6x6
+    tests' bounds."""
+    spectra = eig6_spectra(thresh, seed=3, n=3)
+    Hs = torch.as_tensor(np.stack([h for _, h in spectra]))
+    P_all, lam_all = e1.degeneracy_projection(Hs, thresh)
+    assert P_all.shape == (len(spectra), 3, 3) and lam_all.shape == (len(spectra), 3)
+    for i, (name, H) in enumerate(spectra):
+        ref = np.asarray(jax_projection(H, thresh))
+        lam_ref = np.linalg.eigvalsh(H.astype(np.float64))
+        scale = max(float(np.abs(H).max()), 1.0)
+        P, lam = e1.degeneracy_projection(torch.as_tensor(H), thresh)
+        assert torch.equal(P, P_all[i]) and torch.equal(lam, lam_all[i]), name
+        P_k, lam_k, sweeps = _jacobi6(H, thresh)
+        assert sweeps <= 8, (name, sweeps)
+        for got, got_lam in ((P.numpy(), lam.numpy()), (P_k, lam_k)):
+            np.testing.assert_allclose(got, ref, atol=P_TOL, err_msg=name)
+            np.testing.assert_allclose(got_lam / scale, lam_ref / scale,
+                                       atol=LAM_TOL, err_msg=name)
+        assert np.isclose(np.trace(P_k), (lam_ref >= thresh).sum(), atol=1e-5), name
+    spectra = dict(spectra)
+    assert _jacobi6(spectra["zero"], thresh)[2] == 0
+    P, _, _ = _jacobi6(spectra["block_masked"], thresh)
+    assert not P[1].any() and not P[:, 1].any()
 
 
 def test_exact_zero_rows_need_no_rotation():

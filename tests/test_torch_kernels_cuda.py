@@ -15,12 +15,13 @@ equal a scipy reference; K2 (one launch a call) at every sensor preset
 (one synthetic scan each; HDL-64E with rows from elevation math) and on
 the built and random rows of tests/test_torch_feature_rows.py under 13
 configs (each threshold at, and one ulp either side of, a value the rows
-hold; edge_prominence 0, 1 and 4); K3 (k-NN)
+hold; edge_prominence 0, 1 and 4), in either pick order (sector_parallel
+and the reference's sequential order); K3 (k-NN)
 to rtol 1e-4 / atol 1e-3 on distances with every returned index a valid
 point at its distance (tests/test_knn_pallas.py's scheme), on shapes that
 exercise its split / merge passes: ragged and single splits, partial query
 blocks, k = 1 and 8, sentinel slots, and a duplicate point across splits
-(the lower index first, as in the plain version); E1 (the 6x6
+(the lower index first, as in the plain version); E1 (the 6x6 and 3x3
 degeneracy projection) on tests/torch_courses.eig6_spectra at both
 pipeline thresholds, one matrix a call and all in one batch: P within
 1e-5, eigenvalues within 1e-5 of |H|, the keep mask equal, no host sync.
@@ -29,7 +30,8 @@ through its custom op's vmap rule, is held against its plain version a
 sequence at a time: K1 on batches of VLP-16 (8 scans, one cooperative
 launch), HDL-64E (8) and VLS-128 (3) scans, the last two beyond one
 launch's co-resident blocks (the fewest launches that fit); K2 on 8
-VLP-16 and 3 HDL-64E scans in one launch; K3 on 8 searches at the mapping
+VLP-16 and 3 HDL-64E scans in one launch, in either pick order; K3 on 8
+searches at the mapping
 and loop shapes in one launch, each equal to its own launch bit for bit;
 E1 on 4 stacks of spectra in one launch without a host sync.
 chip_smoke.py runs the same checks at the main path's full shapes.
@@ -126,15 +128,32 @@ def _k2_matches_plain(packed, cfg):
     return lab, pick
 
 
-@pytest.mark.parametrize("preset", ["vlp16", "os1_16", "hdl32e", "os1_64",
-                                    "hdl64e", "vls128"])
+PRESETS = ["vlp16", "os1_16", "hdl32e", "os1_64", "hdl64e", "vls128"]
+
+
+@pytest.mark.parametrize("preset", PRESETS)
 def test_pick_kernel_matches_plain(dev, img, preset):
     """The fused K2 against its plain version on one synthetic scan of each
     sensor preset (HDL-64E as chip_smoke.py's path: rows from elevation
     math, each point moved into the middle of its row)."""
-    cfg = config_for(preset, deskew=False)
-    if preset == "vlp16":
-        im = img
+    _pick_kernel_at_preset(dev, img, config_for(preset, deskew=False))
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_pick_kernel_sequential_matches_plain(dev, img, preset):
+    """K2's sequential mode (sector_parallel=False, the reference's order)
+    against its plain version on the same scans."""
+    cfg = config_for(preset, deskew=False, sector_parallel=False)
+    lab = _pick_kernel_at_preset(dev, img, cfg)
+    lab_par, _ = features.label_features_plain(
+        segment_scan(_preset_image(dev, img, cfg), cfg)[0],
+        cfg.replace(sector_parallel=True))
+    assert not torch.equal(lab, lab_par)     # the order shows on these scans
+
+
+def _preset_image(dev, img, cfg):
+    if cfg.sensor.name == "vlp16":
+        return img
     else:
         xyz, valid, ring = syn.raycast(syn.default_world(9), np.eye(3),
                                        np.array([1.0, 2.0, 1.7]), cfg.sensor,
@@ -143,11 +162,16 @@ def test_pick_kernel_matches_plain(dev, img, preset):
             ring = torch.as_tensor(ring, device=dev)
         else:
             xyz, ring = mid_row(xyz, cfg.sensor), None
-        im = project_scan(torch.as_tensor(xyz, device=dev),
-                          torch.as_tensor(valid, device=dev), cfg, ring)
-    lab, _ = _k2_matches_plain(segment_scan(im, cfg)[0], cfg)
+        return project_scan(torch.as_tensor(xyz, device=dev),
+                            torch.as_tensor(valid, device=dev), cfg, ring)
+
+
+def _pick_kernel_at_preset(dev, img, cfg):
+    lab, _ = _k2_matches_plain(segment_scan(_preset_image(dev, img, cfg), cfg)[0],
+                               cfg)
     assert lab.shape == (cfg.sensor.n_scan, cfg.sensor.horizon_scan)
     assert int((lab == 2).sum()) > 0 and int((lab == -1).sum()) > 0
+    return lab
 
 
 @pytest.mark.parametrize("variant", ["default", *THRESHOLD_CFGS])
@@ -164,6 +188,20 @@ def test_label_features_kernel_on_built_rows(dev, rows, variant):
     arrays = (built_rows(int(W)) if kind == "built"
               else random_rows(int(W), R=64, W=int(W)))
     cfg = config_for("vlp16", **THRESHOLD_CFGS.get(variant, {}))
+    _k2_matches_plain(packed_from(*arrays, device=dev), cfg)
+
+
+@pytest.mark.parametrize("variant", ["default", *THRESHOLD_CFGS])
+@pytest.mark.parametrize("rows", ["built_1800", "built_2048", "random_1800",
+                                  "random_1024"])
+def test_label_features_sequential_on_built_rows(dev, rows, variant):
+    """K2's sequential mode on the same rows and configs: its bands cross
+    into the next sector, and on the short rows (count < 40) past it."""
+    kind, W = rows.split("_")
+    arrays = (built_rows(int(W)) if kind == "built"
+              else random_rows(int(W), R=64, W=int(W)))
+    cfg = config_for("vlp16", sector_parallel=False,
+                     **THRESHOLD_CFGS.get(variant, {}))
     _k2_matches_plain(packed_from(*arrays, device=dev), cfg)
 
 
@@ -283,7 +321,7 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="do not fit"):
         features.label_features(wide, CFG)
     assert features.label_features.launches == n
-    # E1: float32 (B, 6, 6) only, before any launch
+    # E1: float32 (B, n, n) with n = 3 or 6 only, before any launch
     n = eig6.eig6.launches
     with pytest.raises(ValueError):
         eig6.eig6(torch.zeros((2, 6, 6), dtype=torch.float64, device=dev), 10.0)
@@ -334,11 +372,14 @@ def test_label_prop_batched_launches(dev, preset, B):
             *per[b], cfg.label_prop_max_sweeps)), b
 
 
-@pytest.mark.parametrize("preset,B", [("vlp16", 8), ("hdl64e", 3)])
-def test_label_features_batched_launch(dev, preset, B):
-    """K2 under torch.func.vmap: one launch of B x R rings, each scan bit
-    for bit the plain version's."""
+@pytest.mark.parametrize("preset,B,sector_parallel", [
+    ("vlp16", 8, True), ("hdl64e", 3, True), ("vlp16", 8, False),
+    ("hdl64e", 3, False)])
+def test_label_features_batched_launch(dev, preset, B, sector_parallel):
+    """K2 under torch.func.vmap, in either pick order: one launch of B x R
+    rings, each scan bit for bit the plain version's."""
     cfg, ims = _preset_images(dev, preset, B)
+    cfg = cfg.replace(sector_parallel=sector_parallel)
     packed = [segment_scan(im, cfg)[0] for im in ims]
     stacked = type(packed[0])(*(torch.stack(v) for v in zip(*packed)))
     n = features.label_features.launches
@@ -371,6 +412,36 @@ def test_knn_batched_launch(dev, q_n, r_n, k):
         assert torch.equal(idx[b], i1) and torch.equal(d2[b], d1), b
         _, pd2 = knn.knn_plain(q[b], r[b], valid[b], k)
         torch.testing.assert_close(d2[b], pd2, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("thresh", [10.0, 100.0])
+def test_eig6_kernel_at_3x3_matches_plain(dev, thresh):
+    """E1 at 3x3 (the two-step odometry's systems) on the 3x3 spectra of
+    tests/torch_courses.eig6_spectra, batched, one matrix a call and under
+    torch.func.vmap (one launch), with no host sync: P within 1e-5,
+    eigenvalues within 1e-5 of |H|, keep masks equal."""
+    names, Hs = zip(*eig6_spectra(thresh, seed=2, n=3))
+    H = torch.as_tensor(np.stack(Hs), device=dev)
+    scale = H.abs().amax(dim=(1, 2)).clamp(min=1.0)
+    n = eig6.eig6.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        P, lam, sweeps = eig6.eig6(H, thresh)
+        singles = [eig6.degeneracy_projection(H[i], thresh) for i in range(len(Hs))]
+        P_v, lam_v = torch.func.vmap(lambda h: eig6.degeneracy_projection(h, thresh))(
+            H.reshape(len(Hs), 1, 3, 3))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert eig6.eig6.launches == n + 2 + len(Hs)
+    assert torch.equal(P_v[:, 0], P) and torch.equal(lam_v[:, 0], lam)
+    P_ref, lam_ref = eig6.degeneracy_projection_plain(H, thresh)
+    for i, name in enumerate(names):
+        assert (P[i] - P_ref[i]).abs().max().item() <= 1e-5, name
+        assert torch.equal(singles[i][0], P[i]), name
+        assert ((lam[i] - lam_ref[i]).abs().max() / scale[i]).item() <= 1e-5, name
+        assert torch.equal(lam[i] >= thresh, lam_ref[i] >= thresh), name
+        assert 0 <= int(sweeps[i]) <= 8, name
+    assert int(sweeps[names.index("zero")]) == 0
 
 
 def test_eig6_batched_launch(dev):

@@ -25,7 +25,7 @@ from lego_loam_tpu_torch.models.pipeline import LegoLoamPipeline
 from lego_loam_tpu_torch.ops import features, knn, segmentation
 
 from tests.test_torch_backend import _rot_err_deg
-from tests.torch_courses import SMALL, slice_course
+from tests.torch_courses import FAITHFUL, SMALL, slice_course
 
 POS_TOL, ROT_TOL_DEG = 1e-2, 0.1
 
@@ -59,14 +59,22 @@ def test_slice_matches_jax_pipeline():
 
 
 def test_pipeline_requires_ported_features():
-    # loop closure is ported: the constructor takes it
+    """Every setting the JAX package runs is ported: the constructor takes
+    loop closure, and the reference-faithful configuration (sequential
+    sector picks, the two-step odometry, the 3-point surf plane) runs
+    through process_scan, two scans, the second with its odometry solve."""
     LegoLoamPipeline(config_for("vlp16", loop_closure_enabled=True, **SMALL), "cpu")
-    cfg = config_for("vlp16", odom_mode="two_step", **SMALL)
+    cfg = config_for("vlp16", **dict(SMALL, **FAITHFUL))
     pipe = LegoLoamPipeline(cfg, torch.device("cpu"))
-    xyz, valid, ring = syn.raycast(syn.default_world(0), np.eye(3),
-                                   np.array([0.0, 0.0, 1.6]), cfg.sensor)
-    with pytest.raises(NotImplementedError):
-        pipe.process_scan(xyz, valid, ring)
+    for x in (0.0, 0.3):
+        xyz, valid, ring = syn.raycast(syn.default_world(0), np.eye(3),
+                                       np.array([x, 0.0, 1.6]), cfg.sensor)
+        res = pipe.process_scan(xyz, valid, ring)
+        assert res.stats["n_sharp"] > 0 and res.stats["n_flat"] > 0
+    # the solve moved the pose along the 0.3 m step in x (from the zero
+    # seed the two-step lands 0.23 m out, as the JAX package's does)
+    t = res.fused_pose.t.numpy()
+    assert 0.15 < t[0] < 0.45 and abs(t[1]) < 0.05 and abs(t[2]) < 0.05
 
 
 def test_pipeline_runs_on_the_card_by_default():

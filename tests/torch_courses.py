@@ -15,8 +15,15 @@ same configs over the same seeded synthetic scans.
     fast_yaw_imu), tests/test_imu_deskew.py's in-sweep profiles and truth
     buffers (accel_profile, truth_buffer), bench.py's aligned ATE
     (aligned_ate) and a course written to a ROS bag (write_imu_bag).
-  * E1: seeded symmetric 6x6 systems for the degeneracy projection
-    (eig6_spectra), every eigenvalue well away from the threshold.
+  * FAITHFUL: the reference-faithful knobs (sequential sector picks,
+    two-step odometry, the 3-point surf plane, no ground-label gate, no
+    prominence gate) of examples/accuracy_sweep.py's "faithful" arm and
+    of the NumPy oracles of the C++ reference; ORACLE_CFG and
+    oracle_course() are tests/test_oracle_pipeline.py's config and
+    15-scan course.
+  * E1: seeded symmetric 6x6 or 3x3 systems for the degeneracy
+    projection (eig6_spectra), every eigenvalue well away from the
+    threshold.
 
 Scans come from the port's raycaster, which casts byte-identical scans to
 the JAX package's (tests/test_torch_import.py).
@@ -33,6 +40,21 @@ SMALL = dict(deskew=False, max_keyframes=64, max_map_corner=2048,
              kf_outlier_cap=512, max_scan_corner_ds=512, max_scan_surf_ds=2048,
              nn_query_tile=256, mapping_process_every=2, nn_exact=True)
 SLICE_SCANS = 6
+
+# the reference-faithful configuration: the C++ reference's decisions
+# (examples/accuracy_sweep.py's "faithful" arm, PARITY.md)
+FAITHFUL = dict(deskew=False, nn_exact=True, sector_parallel=False,
+                odom_class_gate=False, edge_prominence=0.0,
+                odom_mode="two_step", odom_surf_fit="tri")
+# tests/test_oracle_pipeline.py's CFG overrides (its odometry is the
+# default block schedule; its oracle runs the reference's two-step)
+ORACLE_CFG = dict(deskew=False, max_keyframes=64, max_map_corner=4096,
+                  max_map_surf=16384, kf_corner_cap=512, kf_surf_cap=2048,
+                  kf_outlier_cap=512, max_scan_corner_ds=512,
+                  max_scan_surf_ds=2048, nn_query_tile=512, max_loop_edges=8,
+                  pg_gn_iters=4, nn_exact=True, sector_parallel=False,
+                  odom_class_gate=False, edge_prominence=0.0,
+                  odom_surf_fit="tri")
 
 # the knobs of the out-and-back course: a revisit 3 s after the first
 # visit counts, every scan is mapped, and keyframes are 0.25 m apart
@@ -57,6 +79,18 @@ def slice_course(sensor, n: int = SLICE_SCANS):
     poses = syn.circle_trajectory(12, radius=8.0, arc=0.35 * np.pi)[:n]
     scans = [syn.raycast(world, R, t, sensor, noise=0.01,
                          rng=np.random.default_rng(k))
+             for k, (R, t) in enumerate(poses)]
+    return poses, scans
+
+
+def oracle_course(sensor, n: int = 15):
+    """(poses, scans) of tests/test_oracle_pipeline.py's trajectory test:
+    the first n of 15 poses of a 12 m circle over 0.35 rad in world seed
+    11, 1 cm range noise (seed 500 + index)."""
+    world = syn.default_world(seed=11)
+    poses = syn.circle_trajectory(15, radius=12.0, arc=0.35)[:n]
+    scans = [syn.raycast(world, R, t, sensor, noise=0.01,
+                         rng=np.random.default_rng(500 + k))
              for k, (R, t) in enumerate(poses)]
     return poses, scans
 
@@ -255,14 +289,16 @@ def _sym32(H) -> np.ndarray:
     return (0.5 * (H + H.T)).astype(np.float32)
 
 
-def eig6_spectra(thresh: float, seed: int = 0) -> list:
-    """(name, H) pairs of symmetric (6, 6) float32 systems for the
-    degeneracy projection at `thresh`, each with every eigenvalue at least
-    20 % of thresh away from it (so float32 and float64 eigen-solvers take
-    the same keep mask): spectra across the threshold, all kept, all
+def eig6_spectra(thresh: float, seed: int = 0, n: int = 6) -> list:
+    """(name, H) pairs of symmetric (n, n) float32 systems, n = 6 or 3, for
+    the degeneracy projection at `thresh`, each with every eigenvalue at
+    least 20 % of thresh away from it (so float32 and float64 eigen-solvers
+    take the same keep mask): spectra across the threshold, all kept, all
     dropped, repeated eigenvalues on either side, a rank-one system, the
-    odometry's block system with one block masked to exact zeros, a zero
-    matrix and Gram matrices J^T J of random constraint rows."""
+    odometry's block system with one block masked to exact zeros (at 3x3:
+    a 2x2 block and a zero row and column), a zero matrix and Gram matrices
+    J^T J of random constraint rows.  A 3x3 spectrum is the 6x6 one's
+    entries 0, 2 and 5 (3 and 5 for repeated_across)."""
     rng = np.random.default_rng(seed)
     out = []
     for name, lam in (
@@ -272,17 +308,21 @@ def eig6_spectra(thresh: float, seed: int = 0) -> list:
             ("repeated_kept", [5.0, 5.0, 5.0, 0.1, 0.1, 0.1]),
             ("repeated_across", [0.3, 0.3, 40.0, 40.0, 40.0, 40.0]),
             ("rank_one", [0.0, 0.0, 0.0, 0.0, 0.0, 50.0])):
-        Q = _rotation(rng, 6)
+        if n == 3:
+            lam = [lam[i] for i in ((0, 3, 5) if name == "repeated_across"
+                                    else (0, 2, 5))]
+        Q = _rotation(rng, n)
         out.append((name, _sym32(Q @ np.diag(np.asarray(lam) * thresh) @ Q.T)))
     # block mode: surf rows fill (pitch, roll, tz) = columns 0, 1, 5, and
     # no corner constraint survives, so rows / columns 2-4 are exact zeros
-    blk = np.zeros((6, 6))
-    Q = _rotation(rng, 3)
-    blk[np.ix_([0, 1, 5], [0, 1, 5])] = Q @ np.diag([2.0, 20.0, 90.0]) @ Q.T * thresh
+    blk = np.zeros((n, n))
+    kept = [0, 1, 5] if n == 6 else [0, 2]
+    Q = _rotation(rng, len(kept))
+    blk[np.ix_(kept, kept)] = Q @ np.diag([2.0, 20.0, 90.0][-len(kept):]) @ Q.T * thresh
     out.append(("block_masked", _sym32(blk)))
-    out.append(("zero", np.zeros((6, 6), np.float32)))
+    out.append(("zero", np.zeros((n, n), np.float32)))
     for k in range(3):
-        J = rng.normal(size=(64, 6)) * rng.uniform(0.05, 1.5, size=6)
+        J = rng.normal(size=(64, n)) * rng.uniform(0.05, 1.5, size=n)
         H = J.T @ J
         lam = np.linalg.eigvalsh(H)
         # keep the Gram spectra off the threshold too: rescale so that the
