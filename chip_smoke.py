@@ -50,7 +50,8 @@ Phases (any failure exits non-zero before the result lines):
      0.15 m; prints steady-state scans/s, per-stage ms, host syncs per scan
      and peak device memory, and fails unless a plain and a mapping scan
      each make exactly 1 host sync (process_scan's one copy).  A second
-     process_scan run of the same scans prints the card's run-to-run gap.
+     process_scan run of the same scans must give bit-identical fused and
+     mapped poses (no float atomic sum is left on the path).
      Then the same 30 scans through process_chunk in chunks of 10 host
      arrays, with and without collect_stats: fused and mapped poses
      within 1 mm / 0.01 deg of the per-scan run, equal stats, did_map and
@@ -157,6 +158,25 @@ Phases (any failure exits non-zero before the result lines):
      a loop check in a chunk.  Prints aggregate scans/s, peak memory and
      syncs per B, each beside the card's name and power limit, and the
      phase's seconds;
+  9b. the distributed back end (lego_loam_tpu_torch/parallel/) at world
+     size 1 over NCCL (dist.init_process_group("nccl") on an in-process
+     store; NCCL refuses two ranks on one device), each check failing the
+     run: K3 against its plain version at knn_sharded's shard shapes over
+     W = 1, 2, 4, 8 ranks (4096 x 32768 / W, the K3 phase's bounds);
+     knn_sharded equal to a direct K3 call, its all-gather through NCCL
+     or not; solve_pose_graph_sharded on the loop path's end state at
+     full width within 1 mm / 0.01 deg of solve_pose_graph, equal over
+     NCCL, with no host sync; ShardedBackend fed by the port's front end
+     over the slice's 30 scans, every mapped pose within 1 mm / 0.01 deg
+     of the slice's LegoLoamPipeline run with equal keyframes, every
+     kernel launched, host syncs only the n_kf pull every
+     compact_check_every solves, and the same run with every collective
+     through NCCL equal; the loop course through ShardedBackend.loop_step:
+     the pipeline's loop flags, fused poses within 1 mm and keyframes
+     within 1 mm / 0.01 deg, one host sync a loop check.  Prints NCCL
+     collectives a solve, ms a sharded solve against mapping_step and a
+     sharded pose-graph solve against solve_pose_graph, K3 launches a
+     solve and peak memory beside the card's name and power limit;
  10. torch.profiler, after every timed phase (a profiler session can leave
      the launch path slower for the rest of the process): the device
      kernels one K2 call runs (more than 2 fails), beside those of the
@@ -181,13 +201,15 @@ every scan from one pose; the IMU phase's swept scans run the default
 deskew=True.  Every other knob is the default PipelineConfig.
 
 Prints the slice's, the HDL-64E path's, the loop path's, the IMU phase's,
-the chunk phases', the export's, the faithful path's, the oracle phase's
-and the fleet's numbers, the card-against-CPU gaps, K1's at each preset,
+the chunk phases', the export's, the faithful path's, the oracle phase's,
+the fleet's and the distributed back end's numbers, the card-against-CPU gaps, K1's at each preset,
 K2's at HDL-64E (both orders) and E1's extras (6x6 and 3x3) as one JSON
 line, then the kernel results as {"kernels": [...]}
 (K1 at VLP-16's shape; K3 with its launches a loop check and its loop
-shapes; every kernel with its launches on the slice, inside the chunked
-run and on the fleet's B = 8 run, and its batched launch at B = 8; K2's
+shapes and its shard shapes (shard_shapes) and launches a sharded solve;
+every kernel with its launches on the slice, inside the chunked run, on
+the fleet's B = 8 run and on the sharded back end's run
+(parallel_launches), and its batched launch at B = 8; K2's
 sequential mode and E1's 3x3 form as rows of their own, launches from
 the faithful path and its chunks), and
 as the last line {"ok": true, "device": {...}}.
@@ -248,9 +270,10 @@ ORACLE_ATE, PORT_ATE, CROSS_ATE = 0.10, 0.08, 0.10
 # and the reductions pick their kernels by shape), and a course amplifies a
 # last-bit change to millimetres: on an H100 the batch lands up to 7.1 mm /
 # 0.043 deg from a sequence alone, the same with
-# torch.use_deterministic_algorithms, while two runs alone differ by up to
-# 3.2 mm / 0.011 deg without it (the index_add atomics of the voxel
-# centroids; tests/fleet_gaps.py prints both).  The JAX package's
+# torch.use_deterministic_algorithms; two runs alone differed by up to 3.2
+# mm / 0.011 deg while the voxel centroids summed with index_add atomics,
+# and repeat bit for bit since their sums are exact (tests/fleet_gaps.py
+# prints both).  The JAX package's
 # tests/test_batch.py holds its batch to 2 cm for the same reason.
 FLEET_B = 8
 FLEET_POS_M, FLEET_ROT_DEG = C6_POS_M, C6_ROT_DEG
@@ -712,6 +735,7 @@ def check_k3(torch, cfg, world, dev):
         query, _ = voxel_downsample(q, qv, leaf_q, n_q)
         r = out[tag] = knn_case(torch, query.contiguous(), ref.contiguous(),
                                 ref_valid.contiguous())
+        r["inputs"] = (query.contiguous(), ref.contiguous(), ref_valid.contiguous())
         S = knn_ops.knn_splits(n_q, n_map)
         tiles = -(-n_q // knn_ops.QUERY_TILE)
         print(f"  K3 knn {tag}: {n_q} x {n_map}, {int(ref_valid.sum())} valid "
@@ -734,6 +758,7 @@ def check_k3(torch, cfg, world, dev):
         "max_abs_err": max(c["err"], s["err"]),
         "ms": s["ms"], "call_ms": s["call_ms"], "plain_ms": s["plain_ms"],
         "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": None,
+        "_surf_inputs": s["inputs"],
     }, (f"ms/plain_ms at {cfg.max_scan_surf_ds}x{cfg.max_map_surf}; at "
         f"{cfg.max_scan_corner_ds}x{cfg.max_map_corner}: kernel {c['ms']:.4f} ms, "
         f"plain {c['plain_ms']:.4f} ms")
@@ -971,6 +996,7 @@ def run_loop_path(torch, cfg, scans, stamps, positions, every, dev):
         "check_ms_each": [c.get("total", 0.0) for c in timing],
         "peak_mem_bytes": int(peak),
         "_icp": icp_inputs[last_closed] if last_closed is not None else None,
+        "_mstate": pipe.mstate, "_traj": pipe.trajectory,
     }
 
 
@@ -1033,6 +1059,13 @@ def bag_course(cfg, scans, stamps, imu):
             out_imu.append(pending)
             pending = []
     return out_scans, out_stamps, out_imu
+
+
+def same_pose(torch, a, b) -> bool:
+    """Two poses (or two Nones) bit for bit."""
+    if a is None or b is None:
+        return a is b
+    return torch.equal(a.R, b.R) and torch.equal(a.t, b.t)
 
 
 def rot_gap_deg(Ra, Rb) -> float:
@@ -2096,6 +2129,243 @@ def fleet_phase(torch, cfg, scans, poses, lccfg, results, card, dev):
     return fleet, fchunks
 
 
+def parallel_phase(torch, cfg, scans, rows, n_kf, mapping_ms, lcfg, lscans, lstamps,
+                   lp, results, card, dev):
+    """The distributed back end (lego_loam_tpu_torch/parallel/) on the card
+    at world size 1 over NCCL (NCCL refuses two ranks on one device):
+    checks 1-6 of its contract, each failing the run.  Returns its numbers."""
+    import torch.distributed as dist
+
+    if not dist.is_nccl_available():
+        fail("this torch has no NCCL: the parallel phase cannot run")
+    # no network: NCCL's bootstrap stays on the loopback interface
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        return _parallel_checks(torch, cfg, scans, rows, n_kf, mapping_ms, lcfg,
+                                lscans, lstamps, lp, results, card, dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def _timed_calls(torch, fn, acc):
+    """fn, each call synchronised and its host-clock ms appended to acc."""
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        acc.append((time.perf_counter() - t) * 1e3)
+        return out
+    return wrapper
+
+
+def _counted_calls(torch, fn, acc):
+    """fn, the host syncs of each call appended to acc (catch_syncs)."""
+    def wrapper(*a, **kw):
+        out, sites = catch_syncs(torch, lambda: fn(*a, **kw))
+        acc.append(sites)
+        return out
+    return wrapper
+
+
+def _parallel_checks(torch, cfg, scans, rows, n_kf, mapping_ms, lcfg, lscans,
+                     lstamps, lp, results, card, dev):
+    import torch.distributed as dist
+
+    from lego_loam_tpu_torch.models import mapping as mp
+    from lego_loam_tpu_torch.models import posegraph as pg
+    from lego_loam_tpu_torch.ops import knn as knn_ops
+    from lego_loam_tpu_torch.parallel import backend_sharded as bs
+    from lego_loam_tpu_torch.parallel.comm import Comm
+    from lego_loam_tpu_torch.parallel.graph import solve_pose_graph_sharded
+    from lego_loam_tpu_torch.parallel.map_sharded import knn_sharded
+    from tests.torch_courses import LOOP_CHECK_EVERY
+    from tests.torch_ranks import frontend_course, sharded_course
+
+    solo = Comm()                    # world size 1: no collective
+    nccl = Comm(always=True)         # the same world, every collective through NCCL
+    if (solo.size, nccl.size) != (1, 1) or nccl.group is None:
+        fail(f"the NCCL world has {solo.size} ranks, not 1")
+    out = {"backend": str(dist.get_backend()), "world_size": solo.size}
+    knn_row = results[2]
+    query, ref, ref_valid = knn_row.pop("_surf_inputs")
+
+    # 1. K3 at the shard shapes of knn_sharded over W ranks: each rank holds
+    # max_map_surf / W of the map
+    shapes = {}
+    for W in (1, 2, 4, 8):
+        n = ref.shape[0] // W
+        r = knn_case(torch, query, ref[:n].contiguous(), ref_valid[:n].contiguous())
+        S = knn_ops.knn_splits(query.shape[0], n)
+        shapes[f"{query.shape[0]}x{n}"] = {
+            "world": W, "max_abs_err": r["err"], "ms": r["ms"], "call_ms": r["call_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "splits": S,
+            "valid_refs": int(ref_valid[:n].sum())}
+        print(f"  parallel: K3 at W = {W}'s shard, {query.shape[0]} x {n} "
+              f"({shapes[f'{query.shape[0]}x{n}']['valid_refs']} valid refs, S = {S}): "
+              f"max|d2 err| {r['err']:.3g}, kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.2f} % of it")
+    knn_row["shard_shapes"] = shapes
+    knn_row["max_abs_err"] = max([knn_row["max_abs_err"]]
+                                 + [v["max_abs_err"] for v in shapes.values()])
+
+    # 2. knn_sharded at world size 1 is a direct K3 call, with the
+    # all-gather through NCCL or not
+    want = knn_ops.knn(query, ref, ref_valid, 5)
+    for comm in (solo, nccl):
+        got = knn_sharded(query, ref, ref_valid, 5, comm)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"knn_sharded (always={comm.always}) differs from a direct K3 call")
+    out["knn_sharded_nccl_collectives"] = nccl.calls
+
+    # 3. the edge-sharded pose graph on the loop course's state at full width
+    state, n = lp["_mstate"], int(lp["_mstate"].n_kf)
+    ref_pg = pg.solve_pose_graph(state, lcfg)
+    R1, t1 = solve_pose_graph_sharded(state, lcfg, solo)
+    c0 = nccl.calls
+    (Rn, tn), pg_syncs = catch_syncs(torch, lambda: solve_pose_graph_sharded(
+        state, lcfg, nccl))
+    out["pose_graph"] = pgr = {
+        "keyframes": n, "max_keyframes": lcfg.max_keyframes,
+        "nccl_collectives": nccl.calls - c0, "host_syncs": len(pg_syncs)}
+    pgr["gap_m"], pgr["gap_deg"] = pose_gaps(R1[:n], t1[:n], ref_pg.kf_R[:n],
+                                             ref_pg.kf_t[:n])
+    pgr["nccl_equal"] = bool(torch.equal(R1, Rn) and torch.equal(t1, tn))
+    pgr["ms"] = cuda_ms(torch, lambda: solve_pose_graph_sharded(state, lcfg, solo), 3, 1)
+    pgr["solve_pose_graph_ms"] = cuda_ms(torch, lambda: pg.solve_pose_graph(state, lcfg),
+                                         3, 1)
+    print(f"parallel [{card}]: solve_pose_graph_sharded on the loop course's "
+          f"{n} keyframes (max_keyframes {lcfg.max_keyframes}): {pgr['gap_m'] * 1e3:.4f} "
+          f"mm / {pgr['gap_deg']:.5f} deg from solve_pose_graph, "
+          f"{pgr['nccl_collectives']} NCCL collectives a solve (equal "
+          f"{pgr['nccl_equal']}), {pgr['host_syncs']} host syncs; "
+          f"{pgr['ms']:.2f} ms against solve_pose_graph {pgr['solve_pose_graph_ms']:.2f} ms")
+    if pgr["gap_m"] > CHUNK_POS_M or pgr["gap_deg"] > CHUNK_ROT_DEG:
+        fail(f"the sharded pose graph is {pgr['gap_m']} m / {pgr['gap_deg']} deg from "
+             f"solve_pose_graph")
+    if not pgr["nccl_equal"] or pgr["host_syncs"]:
+        fail(f"the sharded pose graph over NCCL: equal {pgr['nccl_equal']}, "
+             f"host syncs {pg_syncs}")
+
+    # 4. ShardedBackend fed by the port's front end over the slice's scans
+    # at full width, against the single-device LegoLoamPipeline's run
+    wrappers = kernel_wrappers()
+    dscans = device_scans(torch, cfg, scans, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for w in wrappers:
+        w.launches = 0
+    fronts = frontend_course(cfg, dscans, dev)
+    be = bs.ShardedBackend(mp.init_state(cfg, dev), cfg, solo)
+    step_syncs, knn_per_step = [], []
+    counted = _counted_calls(torch, be.step, step_syncs)
+
+    def step(*a, **kw):
+        k0 = knn_ops.knn.launches
+        res = counted(*a, **kw)
+        knn_per_step.append(knn_ops.knn.launches - k0)
+        return res
+
+    be.step = step
+    mapped, fused, _ = sharded_course(be, cfg, fronts)
+    launches = {w.__name__: w.launches for w in wrappers}
+    every = cfg.mapping_process_every
+    ref_mapped = [r.mapped_pose for r in rows[::every]]
+    gm, gd = pose_gaps(torch.stack([T.R for T in mapped]),
+                       torch.stack([T.t for T in mapped]),
+                       torch.stack([T.R for T in ref_mapped]),
+                       torch.stack([T.t for T in ref_mapped]))
+    want_syncs = [int(i % be.compact_check_every == 0) for i in range(len(mapped))]
+    out["slice"] = sl = {
+        "solves": len(mapped), "gap_m": gm, "gap_deg": gd,
+        "bit_equal": all(same_pose(torch, a, b) for a, b in zip(mapped, ref_mapped)),
+        "n_kf": int(be.state.n_kf), "pipeline_n_kf": n_kf, "launches": launches,
+        "knn_launches_per_solve": knn_per_step,
+        "host_syncs_per_solve": [len(x) for x in step_syncs]}
+    # the same course with every collective through NCCL, each solve timed
+    be_n = bs.ShardedBackend(mp.init_state(cfg, dev), cfg, nccl)
+    solve_ms, coll = [], []
+    timed = _timed_calls(torch, be_n.step, solve_ms)
+
+    def nccl_step(*a, **kw):
+        c = nccl.calls
+        res = timed(*a, **kw)
+        coll.append(nccl.calls - c)
+        return res
+
+    be_n.step = nccl_step
+    mapped_n, _, _ = sharded_course(be_n, cfg, fronts)
+    sl["nccl_equal"] = all(same_pose(torch, a, b) for a, b in zip(mapped_n, mapped))
+    sl["nccl_collectives_per_solve"] = coll
+    sl["solve_ms"] = float(np.mean(solve_ms[1:]))
+    sl["first_solve_ms"] = solve_ms[0]
+    sl["mapping_step_ms"] = mapping_ms
+    print(f"parallel [{card}]: ShardedBackend over the slice's {len(scans)} scans "
+          f"({sl['solves']} solves) against LegoLoamPipeline: mapped poses within "
+          f"{gm * 1e3:.4f} mm / {gd:.5f} deg (bit-equal {sl['bit_equal']}), "
+          f"{sl['n_kf']} keyframes (pipeline {n_kf}); host syncs per solve "
+          f"{sl['host_syncs_per_solve']}; K3 launches per solve {knn_per_step}; "
+          f"kernel launches {launches}")
+    print(f"parallel [{card}]: over NCCL, {coll[0]} collectives a solve, poses equal "
+          f"{sl['nccl_equal']}; a sharded solve {sl['solve_ms']:.2f} ms (synchronised, "
+          f"after the first's {sl['first_solve_ms']:.2f} ms) against mapping_step "
+          f"{mapping_ms:.2f} ms (the slice's, scan clouds included)")
+    for key, count in launches.items():
+        if count == 0:
+            fail(f"kernel {key} was not launched on the sharded back end's path")
+    if gm > CHUNK_POS_M or gd > CHUNK_ROT_DEG or sl["n_kf"] != n_kf:
+        fail(f"ShardedBackend is {gm} m / {gd} deg from the pipeline, "
+             f"{sl['n_kf']} keyframes against {n_kf}")
+    if sl["host_syncs_per_solve"] != want_syncs:
+        fail(f"ShardedBackend host syncs per solve {sl['host_syncs_per_solve']}, not "
+             f"{want_syncs} (one n_kf pull every {be.compact_check_every} solves): "
+             f"{step_syncs}")
+    if not sl["nccl_equal"] or min(coll) < 1:
+        fail(f"the NCCL run: equal {sl['nccl_equal']}, collectives {coll}")
+
+    # 5. the loop course: the sharded loop check against the pipeline's
+    lfronts = frontend_course(lcfg, device_scans(torch, lcfg, lscans, dev), dev)
+    lbe = bs.ShardedBackend(mp.init_state(lcfg, dev), lcfg, solo)
+    loop_syncs = []
+    lbe.loop_step = _counted_calls(torch, lbe.loop_step, loop_syncs)
+    _, lfused, closed = sharded_course(lbe, lcfg, lfronts, lstamps, LOOP_CHECK_EVERY)
+    want_closed = [bool(c) for c in lp["loop_closed"][::LOOP_CHECK_EVERY]]
+    ref_st = lp["_mstate"]
+    nk = int(lbe.state.n_kf)
+    fused_gap = float(np.abs(np.stack([f.t.cpu().numpy() for f in lfused])
+                             - np.stack(lp["_traj"])).max())
+    kf_m, kf_deg = pose_gaps(lbe.state.kf_R[:nk], lbe.state.kf_t[:nk],
+                             ref_st.kf_R[:nk], ref_st.kf_t[:nk])
+    out["loop"] = lo = {
+        "closed": closed, "pipeline_closed": want_closed, "fused_gap_m": fused_gap,
+        "keyframe_gap_m": kf_m, "keyframe_gap_deg": kf_deg, "n_kf": nk,
+        "n_loops": int(lbe.state.n_loops),
+        "host_syncs_per_check": [len(x) for x in loop_syncs]}
+    out["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+    print(f"parallel [{card}]: the loop course through ShardedBackend.loop_step: "
+          f"closed {closed} (pipeline {want_closed}), {lo['n_loops']} loops, fused "
+          f"poses within {fused_gap * 1e3:.4f} mm, keyframes within {kf_m * 1e3:.4f} mm "
+          f"/ {kf_deg:.5f} deg; host syncs per loop check {lo['host_syncs_per_check']}; "
+          f"peak memory {out['peak_mem_bytes'] / 2**20:.1f} MiB")
+    if closed != want_closed or not any(closed):
+        fail(f"the sharded loop checks closed {closed}, the pipeline's {want_closed}")
+    if fused_gap > CHUNK_POS_M or kf_m > CHUNK_POS_M or kf_deg > CHUNK_ROT_DEG \
+            or nk != int(ref_st.n_kf) or lo["n_loops"] != int(ref_st.n_loops):
+        fail(f"the sharded loop course differs from the pipeline's: {lo}")
+    # 6. a loop check reads its flag once; nothing else syncs
+    if lo["host_syncs_per_check"] != [1] * len(closed):
+        fail(f"host syncs per sharded loop check {loop_syncs}, not 1 each")
+
+    for r, key in zip(results, ("propagate_labels", "label_features", "knn", "eig6")):
+        r["parallel_launches"] = launches[key]
+    knn_row["launches_per_sharded_solve"] = max(knn_per_step)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2209,9 +2479,19 @@ def main() -> None:
         torch.stack([r.fused_pose.t for r in again_rows]),
         torch.stack([r.fused_pose.R for r in rows]),
         torch.stack([r.fused_pose.t for r in rows]))))}
+    # the card repeats itself bit for bit: no float atomic sum is left on the
+    # path (the voxel centroids are exact fixed-point sums, the pose graph's
+    # loop gradient a contraction)
+    same = all(same_pose(torch, a.fused_pose, b.fused_pose)
+               and same_pose(torch, a.mapped_pose, b.mapped_pose)
+               for a, b in zip(again_rows, rows))
+    chunk["process_scan_repeat"]["bit_equal"] = same
     print(f"slice again: a second process_scan run of the same scans lands "
           f"{chunk['process_scan_repeat']['fused_m'] * 1e3:.4f} mm / "
-          f"{chunk['process_scan_repeat']['fused_deg']:.5f} deg from the first")
+          f"{chunk['process_scan_repeat']['fused_deg']:.5f} deg from the first; "
+          f"fused and mapped poses bit-equal: {same}")
+    if not same:
+        fail("two process_scan runs of the slice on the card differ")
     del again, again_rows
     for tag, stats in (("stats", True), ("no_stats", False)):
         ch = run_chunks(torch, cfg, scans, dev, CHUNK_C, stats)
@@ -2306,6 +2586,7 @@ def main() -> None:
     clock("the loop path")
     lp = run_loop_path(torch, lcfg, lscans, stamps, positions, LOOP_CHECK_EVERY, dev)
     icp_in = lp.pop("_icp")
+    lp_end = {"_mstate": lp.pop("_mstate"), "_traj": lp.pop("_traj")}
     ms = lp["check_ms"]
     print(f"loop: {len(lscans)} scans out and back, {lp['n_loops']} loops closed "
           f"(scans {[k for k, c in enumerate(lp['loop_closed']) if c]}), "
@@ -2479,6 +2760,12 @@ def main() -> None:
     clock("fleet batching")
     fleet, fchunks = fleet_phase(torch, cfg, scans, poses, lccfg, results, card, dev)
 
+    # the distributed back end at world size 1 over NCCL
+    clock("the distributed back end")
+    par = parallel_phase(torch, cfg, scans, rows, sl["n_kf"], sl["mapping_ms"], lcfg,
+                         lscans, stamps, dict(lp, **lp_end), results, card, dev)
+    del lp_end
+
     # profiler phases last: they must not slow the timed ones
     clock("the profiler")
     k2_device_kernels(torch, results[1])
@@ -2526,7 +2813,7 @@ def main() -> None:
     clock(None)
     print(json.dumps({"slice": sl, "hdl64e": hl, "loop": lp, "imu": arms,
                       "chunk": chunk, "export": export, "card_vs_cpu": c6,
-                      "faithful": faithful, "oracle": oracle,
+                      "faithful": faithful, "oracle": oracle, "parallel": par,
                       "k2_sequential_hdl64e": results[4]["hdl64e"],
                       "e1_3x3": {k: results[5][k] for k in (
                           "call_ms", "library_call_ms", "sweeps", "matrices",
@@ -2544,7 +2831,8 @@ def main() -> None:
                                  "plain_ms", "bound_ms", "bound_by", "library_ms",
                                  "launches_per_loop_check", "loop_shapes",
                                  "launches_in_chunks", "fleet_launches",
-                                 "fleet", "note")
+                                 "fleet", "shard_shapes", "parallel_launches",
+                                 "launches_per_sharded_solve", "note")
          if key in r}
         for r in results]}))
     print(json.dumps({"ok": True, "device": {

@@ -52,18 +52,25 @@ def _row(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 
 
 def _keyframe_cloud(state: MappingState, idx, cfg: PipelineConfig,
-                    transformed: bool = True):
+                    transformed: bool = True, offset: int = 0):
     """Corner+surf block of keyframe(s) idx (a device index tensor, 0-dim
     or (n,)), optionally in the map frame: (..., Ckc + Cks, 3) and the
-    validity mask."""
+    validity mask.  The pool blocks may be one rank's slice, rows [offset,
+    offset + Ks) (parallel/backend_sharded.py): a keyframe outside it comes
+    back as zeros with no valid point."""
     i = idx.reshape(-1)
-    pts = torch.cat([state.kf_corner.index_select(0, i),
-                     state.kf_surf.index_select(0, i)], 1)
-    val = torch.cat([state.kf_corner_valid.index_select(0, i),
-                     state.kf_surf_valid.index_select(0, i)], 1)
+    Ks = state.kf_corner.shape[0]
+    own = (i >= offset) & (i < offset + Ks)
+    li = torch.clamp(i - offset, 0, Ks - 1)
+    pts = torch.cat([state.kf_corner.index_select(0, li),
+                     state.kf_surf.index_select(0, li)], 1)
+    val = torch.cat([state.kf_corner_valid.index_select(0, li),
+                     state.kf_surf_valid.index_select(0, li)], 1)
     if transformed:
         pts = (pts @ state.kf_R.index_select(0, i).transpose(1, 2)
                + state.kf_t.index_select(0, i)[:, None, :])
+    pts = torch.where(own[:, None, None], pts, 0.0)
+    val = val & own[:, None]
     return (pts.reshape(idx.shape + pts.shape[1:]),
             val.reshape(idx.shape + val.shape[1:]))
 
@@ -154,10 +161,12 @@ def _loop_core(state: MappingState, src, src_val, hist_pts, hist_val,
     # the chain path between the endpoints
     Z_est = T_latest.inverse().compose(T_cand)
     drift = torch.linalg.vector_norm(Z.t - Z_est.t)
-    seg = torch.where(alive & (idx >= 1),
-                      torch.linalg.vector_norm(state.kf_meas_t, dim=-1), 0.0)
-    cum = torch.cumsum(seg, 0)
-    path = torch.abs(_row(cum, latest) - _row(cum, cand))
+    # the chain's length between the endpoints, a masked sum (the JAX
+    # package differences a cumsum, whose float scan on a CUDA tensor does
+    # not add in a fixed order)
+    lo, hi = torch.minimum(latest, cand), torch.maximum(latest, cand)
+    path = torch.sum(torch.where(alive & (idx > lo) & (idx <= hi),
+                                 torch.linalg.vector_norm(state.kf_meas_t, dim=-1), 0.0))
     drift_ok = drift <= cfg.loop_drift_frac * path + cfg.loop_drift_abs
     cosang = 0.5 * (torch.trace(Z_est.R.T @ Z.R) - 1.0)
     d_rot = torch.arccos(torch.clamp(cosang, -1.0, 1.0))

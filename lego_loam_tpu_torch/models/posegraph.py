@@ -228,15 +228,16 @@ def direct_gn_delta(D, U, A, B_loop, li, lj, r_loop, b, damping):
     D = D + damping * torch.eye(6, dtype=D.dtype, device=dev)
     li, lj = li.long(), lj.long()
 
-    # fold the loop-edge gradient into b
-    At, Bt = A.transpose(-1, -2), B_loop.transpose(-1, -2)
-    b = b.index_add(0, li, -_mv(At, r_loop)).index_add(0, lj, -_mv(Bt, r_loop))
-
     # dense U_L^T as (K, 6, 6L): column block l holds A_l^T at row li[l]
     # and B_l^T at row lj[l]
     ks = torch.arange(K, device=dev)
     onehot_i = (li[:, None] == ks[None, :]).to(D.dtype)
     onehot_j = (lj[:, None] == ks[None, :]).to(D.dtype)
+
+    # fold the loop-edge gradient into b through the same one-hot rows: a
+    # contraction adds in a fixed order (a float atomic scatter would not)
+    At, Bt = A.transpose(-1, -2), B_loop.transpose(-1, -2)
+    b = b - onehot_i.T @ _mv(At, r_loop) - onehot_j.T @ _mv(Bt, r_loop)
     Ut = (torch.einsum("lk,lba->kalb", onehot_i, A)
           + torch.einsum("lk,lba->kalb", onehot_j, B_loop)).reshape(K, 6, 6 * L)
 

@@ -12,9 +12,13 @@ thin, so here it runs in int64 masked to 32 bits after every multiply (a
 wrapped int64 product keeps the correct low 32 bits).  The 3-key sort is a
 stable sort by k2 followed by a stable sort by the int64 key (h << 31) | k1,
 so voxel identity and drop order match the JAX package bit for bit.
-Centroid sums use index_add_: on a CUDA tensor its atomics add in another
-order than the JAX package's sorted segment_sum, so centroids agree to
-float32 rounding, not bitwise.
+Centroid sums are exact integer sums in fixed point (:data:`FIX_SCALE`): the
+sorted points' coordinates as int64 multiples of 2^-24 m, one cumsum along
+the sorted order, differenced at the group ends.  Integer addition does not
+depend on the order the card adds in, so a run repeats itself bit for bit
+and the card's centroids equal the CPU's (a float atomic sum would do
+neither).  The JAX package's float32 segment_sum adds in order; centroids
+agree with it to float32 rounding, not bitwise.
 """
 
 from __future__ import annotations
@@ -22,6 +26,10 @@ from __future__ import annotations
 import torch
 
 _M32 = 0xFFFFFFFF
+# fixed-point unit of the centroid sums: 2^-24 (6e-8 m).  A sum of n
+# points of magnitude below X stays under 2^63 while n X < 2^39, e.g. a
+# million points within 500 km of the origin.
+FIX_SCALE = float(2 ** 24)
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -90,30 +98,35 @@ def voxel_downsample(xyz: torch.Tensor, valid: torch.Tensor, leaf: float,
     new_group = torch.ones_like(sv)
     new_group[:, 1:] = (s1[:, 1:] != s1[:, :-1]) | (s2[:, 1:] != s2[:, :-1])
     gid = torch.cumsum(new_group.to(torch.int64), dim=1) - 1     # (B, n)
-    flat_gid = (gid + torch.arange(B, device=dev)[:, None] * n).reshape(-1)
 
-    svf = sv.to(torch.float32).reshape(-1)
-    # out of place: under torch.func.vmap the zero sums are not batched
-    counts = torch.zeros(B * n, dtype=torch.float32, device=dev).index_add(
-        0, flat_gid, svf)
-    sums = torch.zeros(B * n, 3, dtype=torch.float32, device=dev).index_add(
-        0, flat_gid, sxyz.reshape(-1, 3) * svf[:, None])
-    denom = torch.clamp(counts, min=1.0)[:, None]
-    centroids = (sums / denom).reshape(B, n, 3)
+    # group g holds the sorted points [start_g, end_g): exclusive prefix
+    # sums of (count, fixed-point coordinates, aux) differenced there.  Out
+    # of place, so it batches under torch.func.vmap.
+    K = 0 if aux is None else aux.shape[-1]
+    vals = sxyz
+    if aux is not None:
+        saux = torch.take_along_dim(aux.reshape(B, n, K), order[..., None], dim=1)
+        vals = torch.cat([sxyz, saux], -1)
+    fixed = torch.round(torch.where(sv[..., None], vals, 0.0).to(torch.float64)
+                        * FIX_SCALE).to(torch.int64)
+    cs = torch.cumsum(torch.cat([sv[..., None].to(torch.int64), fixed], -1), dim=1)
+    cs = torch.cat([torch.zeros_like(cs[:, :1]), cs], 1)           # (B, n + 1, C)
+    slot = torch.arange(out_cap, device=dev)
+    # the slots as a (B, out_cap) tensor of gid's batch (under vmap too,
+    # where an unbatched one would be expanded and copied)
+    end = torch.searchsorted(gid, torch.zeros_like(gid[:, :1]) + slot, right=True)
+    start = torch.cat([torch.zeros_like(end[:, :1]), end[:, :-1]], 1)
+    C = cs.shape[-1]
+    sums = (torch.gather(cs, 1, end[..., None].expand(B, out_cap, C))
+            - torch.gather(cs, 1, start[..., None].expand(B, out_cap, C)))
+    denom = torch.clamp(sums[..., :1], min=1).to(torch.float64) * FIX_SCALE
+    means = (sums[..., 1:].to(torch.float64) / denom).to(torch.float32)
 
     n_groups = torch.where(sv, gid + 1, 0).amax(dim=1)            # (B,)
-    slot = torch.arange(out_cap, device=dev)
     valid_out = slot[None, :] < torch.clamp(n_groups, max=out_cap)[:, None]
-    pick = slot.clamp(max=n - 1)
-    xyz_out = torch.where(valid_out[..., None], centroids[:, pick], 0.0)
-    xyz_out = xyz_out.reshape(batch + (out_cap, 3))
+    means = torch.where(valid_out[..., None], means, 0.0)
+    xyz_out = means[..., :3].reshape(batch + (out_cap, 3))
     valid_out = valid_out.reshape(batch + (out_cap,))
     if aux is None:
         return xyz_out, valid_out
-    K = aux.shape[-1]
-    saux = torch.take_along_dim(aux.reshape(B, n, K), order[..., None], dim=1)
-    aux_sums = torch.zeros(B * n, K, dtype=torch.float32, device=dev).index_add(
-        0, flat_gid, saux.reshape(-1, K) * svf[:, None])
-    aux_out = (aux_sums / denom).reshape(B, n, K)[:, pick]
-    aux_out = torch.where(valid_out.reshape(B, out_cap)[..., None], aux_out, 0.0)
-    return xyz_out, aux_out.reshape(batch + (out_cap, K)), valid_out
+    return xyz_out, means[..., 3:].reshape(batch + (out_cap, K)), valid_out

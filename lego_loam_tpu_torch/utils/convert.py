@@ -11,6 +11,10 @@ A stacked state (a leading batch axis on every leaf, as the JAX package's
 BatchPipeline holds it and models/batch.py holds the port's) converts the
 same way: its host fields become one host value a sequence, a tuple, and
 come back as one (B,) array.
+
+A MappingState's keyframe pool cuts into one slice a rank for the
+distributed back end (parallel/backend_sharded.py): shard_pool and its
+inverse gather_pool.
 """
 
 from __future__ import annotations
@@ -69,3 +73,27 @@ def state_to_numpy(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+# the keyframe pool's block fields, the ones the distributed back end shards
+POOL_FIELDS = ("kf_corner", "kf_corner_valid", "kf_surf", "kf_surf_valid",
+               "kf_outlier", "kf_outlier_valid")
+
+
+def shard_pool(state: MappingState, rank: int, world: int) -> MappingState:
+    """Rank `rank`'s copy of a whole MappingState: the six pool fields cut
+    to its rows [rank K / world, (rank + 1) K / world), the pose-level
+    fields whole.  The slice is a copy, so it updates in place alone."""
+    K = state.kf_corner.shape[0]
+    if K % world:
+        raise ValueError(f"a pool of {K} keyframes does not split over {world} ranks")
+    n = K // world
+    return state._replace(**{f: getattr(state, f)[rank * n:(rank + 1) * n].clone()
+                             for f in POOL_FIELDS})
+
+
+def gather_pool(shards) -> MappingState:
+    """The inverse of shard_pool: the whole state from every rank's copy,
+    in rank order (the pose-level fields from the first)."""
+    return shards[0]._replace(**{f: torch.cat([getattr(s, f) for s in shards])
+                                 for f in POOL_FIELDS})

@@ -38,6 +38,9 @@ CHUNK_SLICE = ("ops.eig6", "io.pcd", "native", "native.fast_io", "utils.debug",
 # the fleet-batching slice's: the batch pipeline and the kernel build, whose
 # custom ops' vmap rules it reaches
 BATCH_SLICE = ("models.batch", "kernels.build")
+# the distributed back end's
+PARALLEL_SLICE = ("parallel", "parallel.comm", "parallel.graph",
+                  "parallel.map_sharded", "parallel.backend_sharded")
 
 
 def test_port_imports_without_jax():
@@ -45,9 +48,9 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 37     # every module of the port
+    assert len(names) >= 42     # every module of the port
     assert {f"lego_loam_tpu_torch.{m}"
-            for m in IMU_SLICE + CHUNK_SLICE + BATCH_SLICE} <= names
+            for m in IMU_SLICE + CHUNK_SLICE + BATCH_SLICE + PARALLEL_SLICE} <= names
 
 
 def test_shared_test_courses_import_without_jax():

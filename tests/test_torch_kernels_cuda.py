@@ -35,6 +35,9 @@ searches at the mapping
 and loop shapes in one launch, each equal to its own launch bit for bit;
 E1 on 4 stacks of spectra in one launch without a host sync.
 chip_smoke.py runs the same checks at the main path's full shapes.
+
+Beside the kernels: the voxel centroids (ops/voxel.py's fixed-point sums)
+repeat bit for bit on the card and equal the CPU's.
 """
 
 import numpy as np
@@ -47,6 +50,7 @@ from lego_loam_tpu_torch.ops import eig6, features, knn, segmentation
 from lego_loam_tpu_torch.ops.compaction import segment_scan
 from lego_loam_tpu_torch.ops.ground import mark_ground
 from lego_loam_tpu_torch.ops.projection import project_scan
+from lego_loam_tpu_torch.ops.voxel import voxel_downsample
 
 from tests.test_torch_feature_rows import (THRESHOLD_CFGS, built_rows,
                                            packed_from, random_rows)
@@ -460,3 +464,18 @@ def test_eig6_batched_launch(dev):
     for b in range(4):
         P1, lam1 = eig6.degeneracy_projection(H[b], 10.0)
         assert torch.equal(P[b], P1) and torch.equal(lam[b], lam1), b
+
+
+@pytest.mark.parametrize("spread", [5.0, 20.0])
+def test_voxel_centroids_repeat_bit_for_bit(dev, spread):
+    """The centroid sums are exact integer sums, so two runs on the card
+    give the same bits (float atomics did not), and so does the CPU: 150k
+    points at the local map's leaf and cap, many or few to a voxel."""
+    g = torch.Generator().manual_seed(int(spread))
+    xyz = torch.randn(150_000, 3, generator=g) * spread
+    valid = torch.rand(150_000, generator=g) > 0.2
+    runs = [voxel_downsample(xyz.to(dev), valid.to(dev), 0.4, 32768) for _ in range(2)]
+    host = voxel_downsample(xyz, valid, 0.4, 32768)
+    for a in runs:
+        assert torch.equal(a[0].cpu(), host[0]) and torch.equal(a[1].cpu(), host[1])
+    assert int(host[1].sum()) > 1000
