@@ -107,9 +107,10 @@ Phases (any failure exits non-zero before the result lines):
      points), over the first 48 scans of bench.py's fast-yaw course
      (tests/torch_courses.py: swept raycasts, 2 cm noise, an ideal AHRS and
      accelerometer at 10 samples a sweep), written to a ROS bag and
-     replayed as examples/run_rosbag.py replays one (BagSource, pad_scan,
-     quat_to_mat, push_imu, process_scan), in four arms: de-skew off, on,
-     on with the IMU, and the IMU with de-skew off.  Asserts that K1-K3
+     replayed as the port's run_rosbag replays one (its decode_bag:
+     BagSource, pad_scan, quat_to_mat; then push_imu, process_scan), in
+     four arms: de-skew off, on, on with the IMU, and the IMU with de-skew
+     off.  Asserts that K1-K3
      launched on every arm, that the IMU adds no host sync a scan, and the
      ATE (after rigid alignment, bench.py's definition) of the stable arms:
      de-skew off under 0.15 m, the IMU with de-skew off under
@@ -177,6 +178,30 @@ Phases (any failure exits non-zero before the result lines):
      collectives a solve, ms a sharded solve against mapping_step and a
      sharded pose-graph solve against solve_pose_graph, K3 launches a
      solve and peak memory beside the card's name and power limit;
+ 9c. the drivers (lego_loam_tpu_torch/examples/, drivers_phase), each
+     through its run() with every kernel's count set to 0 just before and
+     read just after, each kernel launched in every run:
+     run_synthetic at its own config (VLP-16, max_keyframes=256) over its
+     30-frame circle with --loop, ATE under 0.15 m;
+     run_rosbag --imu on the IMU phase's bag, its trajectory bit-equal to
+     that phase's de-skew + IMU arm; run_kitti at its own config (HDL-64E,
+     max_keyframes=4096) on the HDL-64E path's 9 scans written as a KITTI
+     sequence (float32 x, y, z, r .bin files, KITTI-00's calibration,
+     the course's poses), per scan and in chunks of 4 (the ragged tail
+     per scan): ATE under 0.2 m, the two within 1 mm / 0.01 deg; the
+     soak's run() at a cut depth (SOAK_CUT: a 0.545 m step, 2 laps, a
+     pool of 128 keyframes, full widths otherwise), which must pass two
+     of the soak's four checks (an n_kf fall seen at its samples, no
+     overflow) and keep a finite trajectory; the other two (loop edges
+     left, corrected ATE under 5 m) are printed: the ring road drifts
+     metres a lap in both packages (ROADMAP C14), printing its
+     JSON line, keyframes at each sample, compactions, host syncs a chunk,
+     ms a loop check against the end pool, peak memory and seconds; and,
+     last in the whole run (after phase 10: in a run that traced it
+     before, phase 10's first K2 session saw no device work),
+     run_synthetic --imu under utils/tracing.trace, held as the --loop
+     run, whose Chrome trace must name the four kernels' custom ops
+     (lego::label_prop, lego::label_features, lego::knn, lego::eig6);
  10. torch.profiler, after every timed phase (a profiler session can leave
      the launch path slower for the rest of the process): the device
      kernels one K2 call runs (more than 2 fails), beside those of the
@@ -202,14 +227,16 @@ deskew=True.  Every other knob is the default PipelineConfig.
 
 Prints the slice's, the HDL-64E path's, the loop path's, the IMU phase's,
 the chunk phases', the export's, the faithful path's, the oracle phase's,
-the fleet's and the distributed back end's numbers, the card-against-CPU gaps, K1's at each preset,
+the fleet's, the distributed back end's and the drivers' numbers, the
+card-against-CPU gaps, K1's at each preset,
 K2's at HDL-64E (both orders) and E1's extras (6x6 and 3x3) as one JSON
 line, then the kernel results as {"kernels": [...]}
 (K1 at VLP-16's shape; K3 with its launches a loop check and its loop
 shapes and its shard shapes (shard_shapes) and launches a sharded solve;
 every kernel with its launches on the slice, inside the chunked run, on
-the fleet's B = 8 run and on the sharded back end's run
-(parallel_launches), and its batched launch at B = 8; K2's
+the fleet's B = 8 run, on the sharded back end's run
+(parallel_launches) and in each run of the drivers (drivers_launches),
+and its batched launch at B = 8; K2's
 sequential mode and E1's 3x3 form as rows of their own, launches from
 the faithful path and its chunks), and
 as the last line {"ok": true, "device": {...}}.
@@ -222,6 +249,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from collections import Counter
@@ -280,6 +308,20 @@ FLEET_POS_M, FLEET_ROT_DEG = C6_POS_M, C6_ROT_DEG
 FLEET_BATCHES = (1, 2, 4, 8)
 FLEET_LOOP_B = 2
 VMAP_FALLBACK = "There is a performance drop"
+# the drivers (lego_loam_tpu_torch/examples/): run_synthetic over its own 30
+# frames, run_kitti per scan and in chunks of KITTI_CHUNK_C over the HDL-64E
+# path's scans written as a KITTI sequence, and the soak at a cut depth: its
+# own run() at full width (VLP-16, default map and keyframe-block caps,
+# chunks of 64, loop closure on) with only the step, the laps and the pool
+# cut for the run's time limit -- a 0.545 m step (576 scans a lap, a 1.64 m
+# chord a mapping solve, so each solve inserts), 2 laps, and a pool of 128
+# keyframes that fills in lap 1 (lap 2 revisits after the 30 s loop gap;
+# the pose graph's block cyclic reduction takes a power-of-two pool)
+DRIVER_FRAMES = 30
+KITTI_CHUNK_C = 4
+SOAK_CUT = dict(n_laps=2, chunk=64, step=0.545)
+SOAK_CUT_KEYFRAMES = 128
+TRACE_OPS = ("lego::label_prop", "lego::label_features", "lego::knn", "lego::eig6")
 
 
 class PhaseClock:
@@ -1029,35 +1071,26 @@ def check_k3_loop(torch, icp_in):
     return out
 
 
-def bag_course(cfg, scans, stamps, imu):
-    """A course written to a ROS bag and read back as a user replays one
-    (examples/run_rosbag.py:76-95): BagSource events in file order, each
-    cloud through pad_scan with its ring padded alike, each IMU
-    orientation through quat_to_mat.  Returns the decoded (scans, stamps,
+def bag_course(cfg, scans, stamps, imu, path):
+    """A course written to a ROS bag at `path` and read back as a user
+    replays one: the port's run_rosbag.decode_bag (BagSource events in file
+    order, each cloud through pad_scan with its ring padded alike, each IMU
+    orientation through quat_to_mat).  Returns the decoded (scans, stamps,
     IMU samples to push before each scan)."""
-    import tempfile
-
-    from lego_loam_tpu_torch.io.kitti import pad_scan
-    from lego_loam_tpu_torch.io.rosbag import BagSource, quat_to_mat
+    from lego_loam_tpu_torch.examples.run_rosbag import decode_bag
     from tests.torch_courses import write_imu_bag
 
+    write_imu_bag(path, scans, stamps, imu, cfg.sensor.scan_period)
     out_scans, out_stamps, out_imu, pending = [], [], [], []
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "course.bag")
-        write_imu_bag(path, scans, stamps, imu, cfg.sensor.scan_period)
-        for kind, msg in BagSource(path):
-            if kind == "imu":
-                pending.append((msg["t"], quat_to_mat(msg["quat"]),
-                                np.asarray(msg["acc"], np.float32),
-                                np.asarray(msg["gyro"], np.float32)))
-                continue
-            xyz, valid = pad_scan(msg["xyz"], cfg)
-            ring = np.zeros(xyz.shape[0], np.int32)
-            ring[:min(len(msg["ring"]), len(ring))] = msg["ring"][:len(ring)]
-            out_scans.append((xyz, valid, ring))
-            out_stamps.append(msg["t"])
-            out_imu.append(pending)
-            pending = []
+    for kind, item in decode_bag(path, cfg):
+        if kind == "imu":
+            pending.append(item)
+            continue
+        xyz, valid, ring, t = item
+        out_scans.append((xyz, valid, ring))
+        out_stamps.append(t)
+        out_imu.append(pending)
+        pending = []
     return out_scans, out_stamps, out_imu
 
 
@@ -1453,8 +1486,6 @@ def check_export(torch, pipe, cfg, scan, n_valid, dev):
     built from this checkout and in use, its pad_scan_native equal to
     kitti.pad_scan on a real scan, and read_bin of that scan written as a
     KITTI .bin byte-equal to it."""
-    import tempfile
-
     from lego_loam_tpu_torch.io import kitti, pcd
     from lego_loam_tpu_torch.native import fast_io
     from lego_loam_tpu_torch.utils import debug
@@ -2366,6 +2397,184 @@ def _parallel_checks(torch, cfg, scans, rows, n_kf, mapping_ms, lcfg, lscans,
     return out
 
 
+def counted(torch, fn):
+    """fn() with every kernel's count set to 0 just before and read just
+    after: (its result, launches by wrapper, seconds)."""
+    wrappers = kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {w.__name__: w.launches for w in wrappers}, time.perf_counter() - t0
+
+
+def drivers_phase(torch, dev, card, work, bag_path, imu_traj, hscans, hposes):
+    """The user entry points of lego_loam_tpu_torch/examples/ through their
+    run(): run_synthetic at its own config over DRIVER_FRAMES frames with
+    --loop (its --imu run is trace_phase's); run_rosbag --imu on the IMU phase's bag, whose
+    trajectory must be bit-equal to that phase's de-skew + IMU arm;
+    run_kitti on the HDL-64E path's scans written as a KITTI sequence
+    (float32 x, y, z, r .bin files, KITTI-00's calibration, the course's
+    poses), per scan and in chunks of KITTI_CHUNK_C, which must agree as
+    chunks agree with process_scan; the soak at its cut depth (SOAK_CUT),
+    which must fill and thin its pool in the pipeline without overflow
+    (its loop-edge and ATE checks are printed: ROADMAP C14).  Every kernel
+    must launch in every run.  (The traced run is trace_phase, last.)"""
+    from lego_loam_tpu_torch import config_for
+    from lego_loam_tpu_torch.examples import run_kitti, run_rosbag, run_synthetic, soak
+    from tests.torch_courses import write_kitti_sequence
+
+    out = {}
+
+    def launched(tag, launches):
+        print(f"drivers: {tag}: kernel launches {launches}")
+        for key, count in launches.items():
+            if count == 0:
+                fail(f"kernel {key} was not launched by {tag}")
+
+    def quiet(*_):
+        pass
+
+    # run_synthetic --loop (its --imu run is trace_phase's, last)
+    tag = "run_synthetic --loop"
+    cfg = run_synthetic.make_config("vlp16", True)
+    res, launches, secs = counted(torch, lambda: run_synthetic.run(
+        cfg, DRIVER_FRAMES, device=dev, log=quiet))
+    out[tag] = synthetic_row(tag, res, launches, secs)
+
+    # run_rosbag --imu on the IMU phase's bag: the arm it replays, bit for bit
+    res, launches, secs = counted(torch, lambda: run_rosbag.run(
+        bag_path, run_rosbag.make_config("vlp16", False), imu=True, device=dev,
+        log=quiet))
+    same = res["trajectory"].shape == imu_traj.shape and np.array_equal(
+        res["trajectory"], imu_traj)
+    out["run_rosbag --imu"] = {"n_scans": res["n_scans"], "bit_equal": same,
+                               "launches": launches, "seconds": secs}
+    print(f"drivers: run_rosbag --imu: {res['n_scans']} scans of the IMU phase's bag, "
+          f"trajectory bit-equal to that phase's de-skew + IMU arm: {same}; {secs:.1f} s")
+    launched("run_rosbag --imu", launches)
+    if not same:
+        fail("run_rosbag's trajectory differs from the IMU phase's arm on the same bag")
+
+    # run_kitti on a KITTI sequence of the HDL-64E path's scans
+    seq = os.path.join(work, "kitti_seq")
+    poses_file = write_kitti_sequence(seq, hscans, hposes)
+    kitti = {}
+    for tag, C in (("per scan", 0), (f"--chunk {KITTI_CHUNK_C}", KITTI_CHUNK_C)):
+        res, launches, secs = counted(torch, lambda: run_kitti.run(
+            seq, run_kitti.make_config(), poses=poses_file, chunk=C, device=dev,
+            log=quiet))
+        kitti[tag] = res
+        out[f"run_kitti {tag}"] = {"ate_m": res["ate_m"], "rpe_m": res["rpe_m"],
+                                   "rpe_deg": float(np.degrees(res["rpe_rad"])),
+                                   "launches": launches, "seconds": secs}
+        print(f"drivers: run_kitti {tag}: {len(res['t'])} HDL-64E scans, ATE "
+              f"{res['ate_m']:.4f} m, RPE@{res['rpe_delta']} {res['rpe_m']:.4f} m / "
+              f"{np.degrees(res['rpe_rad']):.4f} deg, {secs:.1f} s")
+        launched(f"run_kitti {tag}", launches)
+        if not res["ate_m"] < HDL_ATE_BOUND:
+            fail(f"run_kitti {tag}: ATE {res['ate_m']:.4f} m is not under {HDL_ATE_BOUND} m")
+    a, b = kitti["per scan"], kitti[f"--chunk {KITTI_CHUNK_C}"]
+    gap_m = float(np.abs(a["t"] - b["t"]).max())
+    gap_deg = max(rot_gap_deg(x, y) for x, y in zip(a["R"], b["R"]))
+    out["run_kitti_chunk_gap"] = {"m": gap_m, "deg": gap_deg}
+    print(f"drivers: run_kitti --chunk {KITTI_CHUNK_C} against per scan: {gap_m * 1e3:.4f} mm "
+          f"/ {gap_deg:.5f} deg (bound {CHUNK_POS_M * 1e3:.0f} mm / {CHUNK_ROT_DEG} deg)")
+    if gap_m > CHUNK_POS_M or gap_deg > CHUNK_ROT_DEG:
+        fail(f"run_kitti's chunks differ from its per-scan run by {gap_m} m / {gap_deg} deg")
+
+    # the soak at its cut depth
+    scfg = config_for("vlp16", deskew=False, loop_closure_enabled=True,
+                      max_keyframes=SOAK_CUT_KEYFRAMES)
+    torch.cuda.empty_cache()
+    res, launches, secs = counted(torch, lambda: soak.run(
+        cfg=scfg, device=dev, workers=min(8, os.cpu_count() or 1), log=quiet,
+        **SOAK_CUT))
+    rec, extra = res["record"], res["extra"]
+    out["soak_cut"] = {"record": rec, "extra": extra, "launches": launches,
+                       "seconds": secs, "cut": dict(SOAK_CUT, max_keyframes=SOAK_CUT_KEYFRAMES)}
+    syncs = extra["syncs_per_chunk"]
+    print(f"drivers: soak (cut: step {SOAK_CUT['step']} m, {SOAK_CUT['n_laps']} laps, "
+          f"max_keyframes {SOAK_CUT_KEYFRAMES}; chunks of {SOAK_CUT['chunk']}) [{card}]:")
+    print(json.dumps(rec))
+    print(f"drivers: soak: keyframes at each sample {extra['n_kf_samples']}; "
+          f"{extra['compactions_in_pipeline']} compactions in the pipeline (chunks "
+          f"{extra['compaction_chunks']}); host syncs per chunk {syncs} by site "
+          f"{extra['sync_sites']}; a loop check against the end pool "
+          f"{extra['loop_check_ms_end']:.2f} ms; peak memory "
+          f"{extra['peak_mem_bytes'] / 2**20:.1f} MiB; {secs:.1f} s")
+    launched("the soak", launches)
+    # held: the pool filled and the pipeline thinned it (a fall seen at the
+    # samples), no overflow, a finite corrected trajectory.  Printed, not
+    # held: the soak's loop-edge and 5 m ATE checks -- the ring road drifts
+    # metres a lap at this step in both packages (ROADMAP C14), so no
+    # revisit lands within the loop search radius
+    unheld = soak.failures(rec, scfg)
+    print(f"drivers: soak: its own checks that fail {unheld or 'none'} (the loop-edge "
+          f"and ATE checks are not held: ROADMAP C14)")
+    if rec["compactions_observed"] < 1 or extra["compactions_in_pipeline"] < 1:
+        fail("the cut soak: compaction never fired in-pipeline")
+    if rec["n_kf_final"] >= scfg.max_keyframes:
+        fail("the cut soak: pool overflowed")
+    if not np.isfinite(rec["ate_corrected_m"]):
+        fail("the cut soak lost its trajectory")
+    del res
+
+    return out
+
+
+def synthetic_row(tag, res, launches, secs) -> dict:
+    """A run_synthetic run's numbers, printed and held: every kernel
+    launched, a finite trajectory, ATE under ATE_BOUND."""
+    print(f"drivers: {tag}: {DRIVER_FRAMES} frames, ATE {res['ate_m']:.4f} m, "
+          f"{res['n_kf']} keyframes, {res['n_loops']} loop closures, kernel launches "
+          f"{launches}, {secs:.1f} s")
+    for key, count in launches.items():
+        if count == 0:
+            fail(f"kernel {key} was not launched by {tag}")
+    if not np.isfinite(res["est"]).all() or not res["ate_m"] < ATE_BOUND:
+        fail(f"{tag}: ATE {res['ate_m']:.4f} m is not under {ATE_BOUND} m")
+    return {"ate_m": res["ate_m"], "n_kf": res["n_kf"], "n_loops": res["n_loops"],
+            "launches": launches, "seconds": secs}
+
+
+def trace_phase(torch, dev, work):
+    """run_synthetic --imu over DRIVER_FRAMES frames under
+    utils/tracing.trace, last in the run (a profiler session can leave the
+    process's later launches slower, and in a run that traced it before the
+    profiler phase, that phase's first K2 session saw no device work): held
+    as the --loop run is, and its Chrome trace must name the four kernels'
+    custom ops."""
+    from lego_loam_tpu_torch.examples import run_synthetic
+    from lego_loam_tpu_torch.utils.tracing import trace
+
+    def quiet(*_):
+        pass
+
+    tdir = os.path.join(work, "trace")
+    cfg = run_synthetic.make_config("vlp16", False)
+
+    def traced():
+        with trace(tdir):
+            return run_synthetic.run(cfg, DRIVER_FRAMES, imu=True, device=dev, log=quiet)
+    res, launches, secs = counted(torch, traced)
+    row = synthetic_row("run_synthetic --imu, traced", res, launches, secs)
+    files = [os.path.join(tdir, f) for f in os.listdir(tdir) if f.endswith(".json")]
+    if len(files) != 1:
+        fail(f"utils/tracing.trace wrote {len(files)} trace files, not 1")
+    with open(files[0], "rb") as f:
+        text = f.read()
+    named = {op: text.count(f'"{op}"'.encode()) for op in TRACE_OPS}
+    print(f"drivers: its Chrome trace {len(text) / 2**20:.1f} MiB, events of the "
+          f"kernels' ops {named}")
+    missing = [op for op, n in named.items() if n == 0]
+    if missing:
+        fail(f"the trace names no event of {missing}")
+    return dict(row, trace_bytes=len(text), trace_op_events=named)
+
+
 def main() -> None:
     import torch
 
@@ -2385,6 +2594,7 @@ def main() -> None:
 
     dev = torch.device("cuda:0")
     clock = PhaseClock()
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"card: {card}")
@@ -2661,7 +2871,8 @@ def main() -> None:
     t0 = time.perf_counter()
     iposes, iscans, istamps = fast_yaw_course(icfg.sensor, IMU_SCANS)
     iimu = [fast_yaw_imu(k, icfg.sensor.scan_period) for k in range(IMU_SCANS)]
-    bscans, bstamps, bimu = bag_course(icfg, iscans, istamps, iimu)
+    bag_path = os.path.join(work.name, "imu_course.bag")
+    bscans, bstamps, bimu = bag_course(icfg, iscans, istamps, iimu, bag_path)
     print(f"imu: {IMU_SCANS} swept VLP-16 scans of the fast-yaw course, "
           f"{sum(map(len, bimu))} IMU samples, through a ROS bag and back in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -2679,6 +2890,8 @@ def main() -> None:
               for tag in ("off", "on", "imu"))
           + f"; the IMU with de-skew off {arms['imu_off']['ate_aligned_m']:.4f} m "
           f"({arms['imu_off']['ate_m']:.4f})")
+    # the de-skew + IMU arm's trajectory, which run_rosbag must repeat
+    imu_traj = np.stack([r.fused_pose.t.cpu().numpy() for r in arms["imu"]["_rows"]])
     for tag, a in arms.items():
         a.pop("_rows")
         print(f"imu: {tag} arm {a['scans_per_s']:.2f} scans/s over "
@@ -2766,6 +2979,11 @@ def main() -> None:
                          lscans, stamps, dict(lp, **lp_end), results, card, dev)
     del lp_end
 
+    # the user entry points (lego_loam_tpu_torch/examples/)
+    clock("the drivers")
+    drivers = drivers_phase(torch, dev, card, work.name, bag_path, imu_traj, hscans,
+                            hposes)
+
     # profiler phases last: they must not slow the timed ones
     clock("the profiler")
     k2_device_kernels(torch, results[1])
@@ -2810,7 +3028,15 @@ def main() -> None:
               f"{pf['host_ms_per_scan']:.2f} ms a step: device idle "
               f"{100 * pf['device_idle_share']:.1f} %")
 
+    # last: a driver under utils/tracing.trace
+    clock("the traced driver")
+    drivers["run_synthetic --imu, traced"] = trace_phase(torch, dev, work.name)
+    for r, key in zip(results, ("propagate_labels", "label_features", "knn", "eig6")):
+        r["drivers_launches"] = {tag: d["launches"][key] for tag, d in drivers.items()
+                                 if "launches" in d}
+
     clock(None)
+    work.cleanup()
     print(json.dumps({"slice": sl, "hdl64e": hl, "loop": lp, "imu": arms,
                       "chunk": chunk, "export": export, "card_vs_cpu": c6,
                       "faithful": faithful, "oracle": oracle, "parallel": par,
@@ -2818,7 +3044,7 @@ def main() -> None:
                       "e1_3x3": {k: results[5][k] for k in (
                           "call_ms", "library_call_ms", "sweeps", "matrices",
                           "captured", "near_threshold_flips", "max_sweeps")},
-                      "fleet": fleet, "phase_s": clock.seconds,
+                      "fleet": fleet, "drivers": drivers, "phase_s": clock.seconds,
                       "k1_presets": results[0]["presets"],
                       "k2_hdl64e": results[1]["hdl64e"],
                       "e1": {k: results[3][k] for k in (
@@ -2832,7 +3058,8 @@ def main() -> None:
                                  "launches_per_loop_check", "loop_shapes",
                                  "launches_in_chunks", "fleet_launches",
                                  "fleet", "shard_shapes", "parallel_launches",
-                                 "launches_per_sharded_solve", "note")
+                                 "launches_per_sharded_solve", "drivers_launches",
+                                 "note")
          if key in r}
         for r in results]}))
     print(json.dumps({"ok": True, "device": {

@@ -208,6 +208,7 @@ class LegoLoamPipeline:
         # host upper bound on mstate.n_kf: at most one insert per solve, so
         # the device count is read only when this reaches capacity
         self.n_kf_bound = 0
+        self.compactions = 0    # pool thinnings so far (a host count)
         # OR of the loop flags the host has not read yet (a device bool)
         self._loop_flag: torch.Tensor | None = None
         self.trajectory: list = []
@@ -220,6 +221,7 @@ class LegoLoamPipeline:
         if self.n_kf_bound >= cfg.max_keyframes - 1:
             self.mstate = mp.compact_keyframes(self.mstate, cfg)
             self.n_kf_bound = int(self.mstate.n_kf)
+            self.compactions += 1
 
     def sync_map_stale(self) -> None:
         """Read the pending loop flag, if a loop check ran since the host

@@ -41,6 +41,10 @@ BATCH_SLICE = ("models.batch", "kernels.build")
 # the distributed back end's
 PARALLEL_SLICE = ("parallel", "parallel.comm", "parallel.graph",
                   "parallel.map_sharded", "parallel.backend_sharded")
+# the user entry points and the metrics and tracing they report through
+EXAMPLES_SLICE = ("utils.metrics", "utils.tracing", "examples",
+                  "examples.run_synthetic", "examples.run_kitti",
+                  "examples.run_rosbag", "examples.soak")
 
 
 def test_port_imports_without_jax():
@@ -48,9 +52,10 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 42     # every module of the port
+    assert len(names) >= 49     # every module of the port
     assert {f"lego_loam_tpu_torch.{m}"
-            for m in IMU_SLICE + CHUNK_SLICE + BATCH_SLICE + PARALLEL_SLICE} <= names
+            for m in IMU_SLICE + CHUNK_SLICE + BATCH_SLICE + PARALLEL_SLICE
+            + EXAMPLES_SLICE} <= names
 
 
 def test_shared_test_courses_import_without_jax():

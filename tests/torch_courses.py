@@ -15,6 +15,8 @@ same configs over the same seeded synthetic scans.
     fast_yaw_imu), tests/test_imu_deskew.py's in-sweep profiles and truth
     buffers (accel_profile, truth_buffer), bench.py's aligned ATE
     (aligned_ate) and a course written to a ROS bag (write_imu_bag).
+  * KITTI: a course written as a KITTI odometry sequence directory
+    (write_kitti_sequence: .bin scans, KITTI-00's calibration, poses).
   * FAITHFUL: the reference-faithful knobs (sequential sector picks,
     two-step odometry, the 3-point surf plane, no ground-label gate, no
     prominence gate) of examples/accuracy_sweep.py's "faithful" arm and
@@ -31,9 +33,12 @@ the JAX package's (tests/test_torch_import.py).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from lego_loam_tpu_torch.io import synthetic as syn
+from lego_loam_tpu_torch.utils.metrics import ate_rmse
 
 SMALL = dict(deskew=False, max_keyframes=64, max_map_corner=2048,
              max_map_surf=8192, kf_corner_cap=512, kf_surf_cap=2048,
@@ -226,17 +231,9 @@ def fast_yaw_imu(k: int, dt: float = 0.1):
 
 def aligned_ate(est, gt) -> float:
     """ATE RMSE (m) of (N, 3) positions after the rigid least-squares
-    (Umeyama) alignment of est onto gt: lego_loam_tpu.utils.metrics.
-    ate_rmse, which bench.py reports for its de-skew trio (jax-free copy)."""
-    est, gt = np.asarray(est, np.float64), np.asarray(gt, np.float64)
-    mu_e, mu_g = est.mean(0), gt.mean(0)
-    U, _, Vt = np.linalg.svd((gt - mu_g).T @ (est - mu_e) / est.shape[0])
-    S = np.eye(3)
-    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
-        S[2, 2] = -1
-    R = U @ S @ Vt
-    est = est @ R.T + (mu_g - R @ mu_e)
-    return float(np.sqrt(np.mean(np.sum((est - gt) ** 2, axis=1))))
+    (Umeyama) alignment of est onto gt, which bench.py reports for its
+    de-skew trio: the port's utils.metrics.ate_rmse."""
+    return ate_rmse(est, gt)
 
 
 def quat_from_mat(R) -> np.ndarray:
@@ -275,6 +272,43 @@ def write_imu_bag(path: str, scans, stamps, imu, scan_period: float) -> None:
         msgs.append(("/velodyne_points", "sensor_msgs/PointCloud2", t + scan_period,
                      bw.encode_pointcloud2(t, xyz[valid], ring[valid].astype(np.uint16))))
     bw.write_bag(path, msgs)
+
+
+# ---------------------------------------------------------------- KITTI
+
+# KITTI odometry sequence 00's Tr (cam0 <- velo) calibration line, as
+# tests/test_kitti_fixture.py writes it
+TR_KITTI00 = (
+    "Tr: 4.276802385584e-04 -9.999672484946e-01 -8.084491683471e-03 "
+    "-1.198459927713e-02 -7.210626507497e-03 8.081198471645e-03 "
+    "-9.999413164504e-01 -5.403984729748e-02 9.999738645903e-01 "
+    "4.859485810390e-04 -7.206933692422e-03 -2.921968648686e-01"
+)
+
+
+def write_kitti_sequence(root: str, scans, poses) -> str:
+    """A KITTI odometry sequence directory of a course: velodyne/<k>.bin
+    with each scan's valid points as float32 x, y, z, reflectance (0),
+    calib.txt with TR_KITTI00, and poses.txt with the course's velodyne
+    poses (R, t) as KITTI's T_w_cam0 rows.  Returns the poses file."""
+    velo = os.path.join(root, "velodyne")
+    os.makedirs(velo, exist_ok=True)
+    for k, (xyz, valid, _ring) in enumerate(scans):
+        pts = np.zeros((int(valid.sum()), 4), np.float32)
+        pts[:, :3] = xyz[valid]
+        pts.tofile(os.path.join(velo, f"{k:06d}.bin"))
+    with open(os.path.join(root, "calib.txt"), "w") as f:
+        f.write(f"{TR_KITTI00}\n")
+    Tr = np.eye(4)
+    Tr[:3] = np.array([float(x) for x in TR_KITTI00.split()[1:]]).reshape(3, 4)
+    rows = []
+    for R, t in poses:
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, t
+        rows.append((T @ np.linalg.inv(Tr))[:3].reshape(12))
+    path = os.path.join(root, "poses.txt")
+    np.savetxt(path, np.stack(rows))
+    return path
 
 
 # ---------------------------------------------------------------- E1
