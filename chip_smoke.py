@@ -202,6 +202,38 @@ Phases (any failure exits non-zero before the result lines):
      run_synthetic --imu under utils/tracing.trace, held as the --loop
      run, whose Chrome trace must name the four kernels' custom ops
      (lego::label_prop, lego::label_features, lego::knn, lego::eig6);
+ 9d. robustness (robustness_phase; tests/test_robustness.py,
+     tests/test_loop_robustness.py and tests/test_stress.py on the card,
+     ROADMAP A20), each check failing the run: test_robustness.py's four
+     courses (tests/torch_courses.robustness_course: an all-invalid scan,
+     one point, 50 points; NaN and 1e8 m points; one scan four times; a
+     burst of two empty scans between good ones) through process_scan at
+     full width, at that test's config and (the sparse course) in
+     FAITHFUL's order, every odometry, fused and keyframe pose finite, the
+     repeated scan under 0.02 m, each kernel launched (counts set to 0
+     just before, read just after); every kernel call of the full-width and
+     FAITHFUL runs and of the corridor loop checks kept and held against
+     its plain version: K1 (the empty and one-pixel images among them) and
+     K2 in both pick orders (rings of 0 and of 1-11 kept cells) exact, K3
+     (searches against an empty map, the loop checks' ICP and plane 5-NN,
+     and built maps of 1-4 valid points in different splits of the
+     mapping shape) with equal sentinel slots and indices (near ties
+     counted) and distances within 1e-3, E1 at 6x6 and 3x3 (zero
+     Hessians captured, zero / rank-one / rank-two ones built) as phase
+     3 holds it; each timed on its most degenerate input beside its
+     bound; the recovery course through process_chunk in chunks of 4 (the
+     burst inside the first) within 1 mm / 0.01 deg of process_scan with
+     equal stats; BatchPipeline at B = 2, the recovery course beside the
+     slice course, each within 1 cm / 0.1 deg of its run alone with equal
+     stats, did_map and loop flags; the recovery course at the test's
+     config on the card against the CPU (C6); test_loop_robustness.py's
+     corridor cases from the port's own state (tests/torch_courses.
+     corridor_state) on the card and on the CPU, each held to that test's
+     gates, the same decision on both and keyframes within 1 cm; and
+     test_stress.py's fast-yaw (ATE and final bounds asserted) and
+     corridor (finite and lateral under 0.15 m asserted; vertical and
+     along printed: the JAX package misses all three, ROADMAP C2) at its
+     config;
  10. torch.profiler, after every timed phase (a profiler session can leave
      the launch path slower for the rest of the process): the device
      kernels one K2 call runs (more than 2 fails), beside those of the
@@ -211,7 +243,7 @@ Phases (any failure exits non-zero before the result lines):
      False); the same on the IMU course de-skewed with and without the
      IMU, whose difference is the IMU's device events a scan; 6 steady
      scans of the faithful configuration; and one steady fleet chunk of 6
-     steps at each B (device events a step).
+     steps at B = 1 and B = 8 (device events a step).
 
 K1 is also held against its plain version, and timed beside its bound, on
 one synthetic scan of each other sensor preset (OS1-16, HDL-32E, OS1-64,
@@ -227,7 +259,8 @@ deskew=True.  Every other knob is the default PipelineConfig.
 
 Prints the slice's, the HDL-64E path's, the loop path's, the IMU phase's,
 the chunk phases', the export's, the faithful path's, the oracle phase's,
-the fleet's, the distributed back end's and the drivers' numbers, the
+the fleet's, the distributed back end's, the drivers' and the robustness
+phase's numbers, the
 card-against-CPU gaps, K1's at each preset,
 K2's at HDL-64E (both orders) and E1's extras (6x6 and 3x3) as one JSON
 line, then the kernel results as {"kernels": [...]}
@@ -235,7 +268,9 @@ line, then the kernel results as {"kernels": [...]}
 shapes and its shard shapes (shard_shapes) and launches a sharded solve;
 every kernel with its launches on the slice, inside the chunked run, on
 the fleet's B = 8 run, on the sharded back end's run
-(parallel_launches) and in each run of the drivers (drivers_launches),
+(parallel_launches), in each run of the drivers (drivers_launches) and
+on the degenerate courses (robustness_launches, with its checks and
+times on the degenerate inputs under robustness),
 and its batched launch at B = 8; K2's
 sequential mode and E1's 3x3 form as rows of their own, launches from
 the faithful path and its chunks), and
@@ -244,6 +279,7 @@ as the last line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -259,6 +295,7 @@ import numpy as np
 N_SCANS = 30
 WARM_SCANS = 6          # scans before the timed window
 SYNC_SCANS = 6          # scans at the end run under sync-debug counting
+STAGE_SCANS = 12        # scans after the warm ones timed stage by stage
 ATE_BOUND = 0.15        # m, the bound of tests/test_pipeline.py
 # the HDL-64E path: KITTI's sensor, rows from elevation math (no ring
 # channel), the course and bound of tests/test_hdl64e.py, 3 mapping solves
@@ -322,6 +359,10 @@ KITTI_CHUNK_C = 4
 SOAK_CUT = dict(n_laps=2, chunk=64, step=0.545)
 SOAK_CUT_KEYFRAMES = 128
 TRACE_OPS = ("lego::label_prop", "lego::label_features", "lego::knn", "lego::eig6")
+# the robustness phase: the recovery course in chunks of ROBUST_CHUNK_C (its
+# burst inside the first) and beside the slice course in a fleet of
+# ROBUST_FLEET_B
+ROBUST_CHUNK_C, ROBUST_FLEET_B = 4, 2
 
 
 class PhaseClock:
@@ -822,7 +863,8 @@ def run_slice(torch, cfg, scans, poses, dev, n_warm=WARM_SCANS,
     samples pushed before it): `n_warm` scans through a throwaway
     pipeline, then every scan through a new one, timed over all but the
     first `n_warm` and the last `n_sync` (which count host syncs, the IMU
-    pushes included), and again with each stage synchronised; returns its
+    pushes included), and the first `n_warm` + STAGE_SCANS again with each
+    stage synchronised (the stage ms over those STAGE_SCANS); returns its
     numbers."""
     from lego_loam_tpu_torch.models import pipeline as pl
     from tests.torch_courses import aligned_ate
@@ -892,7 +934,7 @@ def run_slice(torch, cfg, scans, poses, dev, n_warm=WARM_SCANS,
     try:
         pipe2 = pl.LegoLoamPipeline(cfg, dev)
         n_map0 = 0
-        for k in range(len(dscans)):
+        for k in range(min(len(dscans), n_warm + STAGE_SCANS)):
             if k == n_warm:
                 del fe_ms[:]
                 n_map0 = len(map_ms)
@@ -1321,6 +1363,32 @@ def e1_bound(sweeps: int, n: int = 6):
     return bound(e1_bytes(n), e1_ops(sweeps, n), FP64_OPS_PER_S)
 
 
+def e1_compare(torch, H, th):
+    """E1 on a (B, n, n) stack against its plain version at threshold th:
+    P within E1_TOL, eigenvalues within E1_TOL of |H|, equal keep masks (a
+    mask may differ only where an eigenvalue lies within E1_TOL |H| of the
+    threshold, counted); fails otherwise.  Returns (max |dP| where the
+    masks agree, max |dlam| / |H|, the masks that differ, most sweeps)."""
+    from lego_loam_tpu_torch.ops import eig6
+
+    n = H.shape[-1]
+    P, lam, sw = eig6.eig6(H, th)
+    P_ref, lam_ref = eig6.degeneracy_projection_plain(H, th)
+    scale = H.abs().amax(dim=(1, 2)).clamp(min=1.0)
+    d_p = (P - P_ref).abs().amax(dim=(1, 2))
+    d_lam = (lam - lam_ref).abs().amax(dim=1) / scale
+    same_mask = ((lam >= th) == (lam_ref >= th)).all(dim=1)
+    at_thresh = ((lam_ref - th).abs() <= E1_TOL * scale[:, None]).any(dim=1)
+    bad = (d_lam > E1_TOL) | (~same_mask & ~at_thresh) | (same_mask & (d_p > E1_TOL))
+    if bool(bad.any()):
+        i = int(bad.nonzero()[0, 0])
+        fail(f"E1 eig6 ({n}x{n}) differs from its plain version at threshold "
+             f"{th} on matrix {i}: |dP| {float(d_p[i]):.3g}, |dlam|/|H| "
+             f"{float(d_lam[i]):.3g}, keep masks equal {bool(same_mask[i])}")
+    return (float(d_p[same_mask].max()) if bool(same_mask.any()) else 0.0,
+            float(d_lam.max()), int((~same_mask).sum()), int(sw.max()))
+
+
 def check_e1(torch, cfg, captured, dev, n=6):
     """E1 against its plain version on the card, on n x n matrices: the
     captured H of real odometry rounds and mapping solves (6x6), or of the
@@ -1344,24 +1412,10 @@ def check_e1(torch, cfg, captured, dev, n=6):
     worst_p = worst_lam = 0.0
     near = sweeps_max = 0
     for th, items in groups.items():
-        H = torch.stack(items).contiguous()
-        P, lam, sw = eig6.eig6(H, th)
-        P_ref, lam_ref = eig6.degeneracy_projection_plain(H, th)
-        scale = H.abs().amax(dim=(1, 2)).clamp(min=1.0)
-        d_p = (P - P_ref).abs().amax(dim=(1, 2))
-        d_lam = (lam - lam_ref).abs().amax(dim=1) / scale
-        same_mask = ((lam >= th) == (lam_ref >= th)).all(dim=1)
-        at_thresh = ((lam_ref - th).abs() <= E1_TOL * scale[:, None]).any(dim=1)
-        bad = (d_lam > E1_TOL) | (~same_mask & ~at_thresh) | (same_mask & (d_p > E1_TOL))
-        if bool(bad.any()):
-            i = int(bad.nonzero()[0, 0])
-            fail(f"E1 eig6 ({n}x{n}) differs from its plain version at threshold "
-                 f"{th} on matrix {i}: |dP| {float(d_p[i]):.3g}, |dlam|/|H| "
-                 f"{float(d_lam[i]):.3g}, keep masks equal {bool(same_mask[i])}")
-        near += int((~same_mask).sum())
-        worst_p = max(worst_p, float(d_p[same_mask].max()))
-        worst_lam = max(worst_lam, float(d_lam.max()))
-        sweeps_max = max(sweeps_max, int(sw.max()))
+        d_p, d_lam, flips, sw = e1_compare(torch, torch.stack(items).contiguous(), th)
+        near += flips
+        worst_p, worst_lam = max(worst_p, d_p), max(worst_lam, d_lam)
+        sweeps_max = max(sweeps_max, sw)
 
     # timed on the first odometry round of the third scan (the first scan
     # has no references yet: its rounds see H = 0); the block odometry
@@ -2575,6 +2629,444 @@ def trace_phase(torch, dev, work):
     return dict(row, trace_bytes=len(text), trace_op_events=named)
 
 
+@contextlib.contextmanager
+def capture_kernel_inputs(torch, dev):
+    """Keeps a copy of the inputs of every kernel call on `dev` (a CPU run
+    beside is left out) while the block runs: K1's label_inputs, K2's
+    packed scan and config (extract_features), K3's search (the mapping
+    solve's and the loop check's), E1's H and threshold.  Yields the dict
+    of lists."""
+    from lego_loam_tpu_torch.models import mapping as mp
+    from lego_loam_tpu_torch.models import odometry as odo
+    from lego_loam_tpu_torch.models import pipeline as pl
+    from lego_loam_tpu_torch.ops import icp, segmentation
+
+    kept = {"k1": [], "k2": [], "k3": [], "e1": []}
+
+    def clone(x):
+        return x.detach().clone() if isinstance(x, torch.Tensor) else x
+
+    def on_card(*ts):
+        return all(t.device.type == dev.type for t in ts if isinstance(t, torch.Tensor))
+
+    orig = {"label_inputs": segmentation.label_inputs,
+            "extract_features": pl.extract_features, "map_knn": mp.knn,
+            "icp_knn": icp.knn, "degeneracy_projection": odo.degeneracy_projection}
+
+    def label_inputs(*a):
+        out = orig["label_inputs"](*a)
+        if on_card(*out):
+            kept["k1"].append(tuple(clone(t) for t in out))
+        return out
+
+    def extract_features(packed, outlier_s, cfg):
+        if on_card(*packed):
+            kept["k2"].append((type(packed)(*(clone(t) for t in packed)), cfg))
+        return orig["extract_features"](packed, outlier_s, cfg)
+
+    def knn_of(key):
+        def knn(query, ref, ref_valid, k, query_tile=0):
+            if on_card(query, ref, ref_valid):
+                kept["k3"].append((clone(query), clone(ref), clone(ref_valid), int(k)))
+            return orig[key](query, ref, ref_valid, k, query_tile)
+        return knn
+
+    def degeneracy_projection(H, thresh):
+        if on_card(H):
+            kept["e1"].append((clone(H), float(thresh)))
+        return orig["degeneracy_projection"](H, thresh)
+
+    segmentation.label_inputs = label_inputs
+    pl.extract_features = extract_features
+    mp.knn, icp.knn = knn_of("map_knn"), knn_of("icp_knn")
+    odo.degeneracy_projection = degeneracy_projection
+    try:
+        yield kept
+    finally:
+        segmentation.label_inputs = orig["label_inputs"]
+        pl.extract_features = orig["extract_features"]
+        mp.knn, icp.knn = orig["map_knn"], orig["icp_knn"]
+        odo.degeneracy_projection = orig["degeneracy_projection"]
+
+
+def all_finite(torch, *ts) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in ts)
+
+
+def robust_courses(torch, cfg, courses, dev, tag):
+    """tests/test_robustness.py's courses through LegoLoamPipeline(cfg, dev)
+    .process_scan with the kernel counts set to 0 just before and read just
+    after: every odometry, fused and keyframe pose finite, the repeated
+    scan under IDENTICAL_BOUND.  Returns the launches, the identical
+    course's displacement and each course's FrameResults."""
+    from lego_loam_tpu_torch.models import pipeline as pl
+    from tests.torch_courses import IDENTICAL_BOUND
+
+    wrappers = kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    mode_counts(zero=True)
+    rows, moved = {}, None
+    for name, scans in courses.items():
+        pipe = pl.LegoLoamPipeline(cfg, dev)
+        rows[name] = []
+        for k, (xyz, valid, ring, t) in enumerate(scans):
+            r = pipe.process_scan(xyz, valid, ring, t=t)
+            if not all_finite(torch, r.odom_pose.t, r.fused_pose.t, r.odom_pose.R,
+                              r.fused_pose.R, pipe.mstate.kf_t):
+                fail(f"robustness ({tag}): {name} scan {k} left a non-finite pose")
+            rows[name].append(r)
+        if name == "identical_repeated":
+            moved = float(torch.linalg.vector_norm(r.fused_pose.t))
+            if not moved < IDENTICAL_BOUND:
+                fail(f"robustness ({tag}): the repeated scan moved {moved:.4f} m, "
+                     f"not under {IDENTICAL_BOUND} m")
+    launches = {w.__name__: w.launches for w in wrappers}
+    launches.update(mode_counts())
+    for key in ("propagate_labels", "label_features", "knn", "eig6"):
+        if launches[key] == 0:
+            fail(f"robustness ({tag}): kernel {key} was not launched on the "
+                 f"degenerate courses")
+    return launches, moved, rows
+
+
+def k3_degenerate(torch, query, ref, valid, k, exact=True):
+    """K3 against knn_plain on one search: sentinel slots equal (index and
+    1e30), real distances within atol 1e-3 / rtol 1e-4 (knn_case's scheme)
+    plus 2 ulp of |q|^2 + |r|^2, the float32 rounding of the expansion for
+    points far out (1 ulp at 100 m is 0.002 m^2), indices equal (with
+    `exact`; else a differing index must be a near tie: its two distances
+    within that tolerance).  Returns (max |d2 err| over real slots, indices
+    that differ)."""
+    from lego_loam_tpu_torch.ops import knn as knn_ops
+
+    idx, d2 = knn_ops.knn(query, ref, valid, k)
+    pidx, pd2 = knn_ops.knn_plain(query, ref, valid, k)
+    real = pd2 < 1e29
+    if not torch.equal(real, d2 < 1e29) or not torch.equal(idx[~real], pidx[~real]) \
+            or not torch.equal(d2[~real], pd2[~real]):
+        fail(f"K3 knn: sentinel slots differ from the plain version ({query.shape[0]} x "
+             f"{ref.shape[0]}, {int(valid.sum())} valid, k = {k})")
+    gap = (d2 - pd2).abs()
+    mag = (query * query).sum(1)[:, None] + (ref[pidx.long()] ** 2).sum(-1)
+    off = gap > 1e-3 + 1e-4 * pd2.abs() + 2 * 1.2e-7 * mag
+    err = float(gap[real].max()) if bool(real.any()) else 0.0
+    if bool(off[real].any()):
+        fail(f"K3 knn distances differ from the plain version by {err:.3g} "
+             f"({query.shape[0]} x {ref.shape[0]}, {int(valid.sum())} valid, k = {k})")
+    diff = idx != pidx
+    n_diff = int(diff.sum())
+    if n_diff and (exact or bool(off[diff].any())):
+        fail(f"K3 knn indices differ from the plain version at {n_diff} slots "
+             f"({query.shape[0]} x {ref.shape[0]}, {int(valid.sum())} valid, k = {k})")
+    return err, n_diff
+
+
+def robust_kernel_checks(torch, cap, full, dev):
+    """Each kernel against its plain version on the inputs captured from the
+    degenerate courses and loop checks, and on a few built ones; each timed
+    on its most degenerate input.  Returns one dict a kernel."""
+    from lego_loam_tpu_torch.ops import eig6
+    from lego_loam_tpu_torch.ops import features as fops
+    from lego_loam_tpu_torch.ops import knn as knn_ops
+    from lego_loam_tpu_torch.ops import segmentation as seg_ops
+    from tests.torch_courses import eig6_spectra
+
+    out = {}
+    # K1: every captured image; the empty and the one-pixel images counted
+    ms = full.label_prop_max_sweeps
+    seeds = [int((a[0] < a[0].numel()).sum()) for a in cap["k1"]]
+    for a in cap["k1"]:
+        if not torch.equal(seg_ops.propagate_labels(*a, ms),
+                           seg_ops.propagate_labels_plain(*a, ms)):
+            fail("K1 label_prop differs from its plain version on a degenerate scan")
+    empty = cap["k1"][seeds.index(0)] if 0 in seeds else None
+    if empty is None or not any(n == 1 for n in seeds):
+        fail(f"the degenerate courses gave K1 no empty or one-pixel image: {sorted(set(seeds))}")
+    b_ms, b_by = bound(nbytes(*empty, empty[0]), 0)
+    out["label_prop"] = {
+        "images": len(cap["k1"]), "empty_images": seeds.count(0),
+        "one_pixel_images": seeds.count(1), "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: seg_ops.propagate_labels(*empty, ms), 50),
+        "plain_ms": cuda_ms(torch, lambda: seg_ops.propagate_labels_plain(*empty, ms), 5),
+        "bound_ms": b_ms, "bound_by": b_by, "input": "the all-invalid scan"}
+    # K2, both pick orders, on every captured packed scan
+    zero = few = 0
+    sparse = None
+    for packed, cfg in cap["k2"]:
+        W = packed.rng.shape[-1]
+        counts = packed.count.clamp(0, W)
+        zero += int((counts == 0).sum())
+        n_few = int(((counts > 0) & (counts < 12)).sum())
+        few += n_few
+        if n_few and sparse is None:
+            sparse = (packed, cfg)
+        for c in (cfg, cfg.replace(sector_parallel=not cfg.sector_parallel)):
+            lab, pick = fops.label_features(packed, c)
+            lab_p, pick_p = fops.label_features_plain(packed, c)
+            if not (torch.equal(lab, lab_p) and torch.equal(pick, pick_p)):
+                fail(f"K2 label_features (sector_parallel={c.sector_parallel}) differs "
+                     f"from its plain version on a degenerate scan")
+    if not zero or sparse is None:
+        fail(f"the degenerate courses gave K2 no ring of 0 ({zero}) or 1-11 kept cells")
+    packed, cfg = sparse
+    R, W = packed.rng.shape
+    b_ms, b_by = k2_bound(cfg, packed.count, R * W)
+    out["label_features"] = {
+        "scans": len(cap["k2"]), "rings_empty": zero, "rings_under_12": few,
+        "max_abs_err": 0.0, "modes": "parallel and sequential",
+        "ms": cuda_ms(torch, lambda: fops.label_features(packed, cfg), 50),
+        "plain_ms": cuda_ms(torch, lambda: fops.label_features_plain(packed, cfg), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "input": f"a scan with {int(packed.count.clamp(0, W).sum())} kept cells"}
+    # K3: every captured search (mapping solves against empty and sparse
+    # maps, the corridor loop checks' ICP and plane 5-NN), then a map of 1-4
+    # valid points spread over the splits of the mapping shape
+    err = 0.0
+    near = n_empty = n_short = 0
+    for q, r, v, k in cap["k3"]:
+        nv = int(v.sum())
+        n_empty += nv == 0
+        n_short += 0 < nv < k
+        e, d = k3_degenerate(torch, q, r, v, k, exact=nv <= k)
+        err, near = max(err, e), near + d
+    maps = [c for c in cap["k3"] if c[1].shape[0] == full.max_map_surf and c[3] == 5]
+    if not n_empty or not maps:
+        fail("the degenerate courses gave K3 no search against an empty map")
+    q = maps[0][0]
+    N = full.max_map_surf
+    S = knn_ops.knn_splits(q.shape[0], N)
+    split = -(-N // S)
+    picks = (5, N // 3 + 7, 2 * N // 3 + 11, N - 3)
+    spread = sorted({i // split for i in picks})
+    ref = torch.zeros((N, 3), device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    for n_pts in (1, 2, 3, 4):
+        valid = torch.zeros(N, dtype=torch.bool, device=dev)
+        for i in picks[:n_pts]:
+            ref[i] = (torch.rand(3, generator=gen) * 40 - 20).to(dev)
+            valid[i] = True
+        e, _ = k3_degenerate(torch, q, ref, valid, 5, exact=True)
+        err = max(err, e)
+    empty_v = torch.zeros(N, dtype=torch.bool, device=dev)
+    b_ms, b_by = bound(nbytes(q, ref, empty_v) + q.shape[0] * 5 * 8, 0)
+    out["knn"] = {
+        "searches": len(cap["k3"]), "empty_maps": n_empty, "short_maps": n_short,
+        "built_maps": f"1-4 valid points at {list(picks)} of {N}, splits {spread} of S = {S}",
+        "near_tie_indices": near, "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: knn_ops.knn(q, ref, empty_v, 5), 20),
+        "plain_ms": cuda_ms(torch, lambda: knn_ops.knn_plain(q, ref, empty_v, 5), 3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "input": f"{q.shape[0]} x {N}, no valid reference (the first mapping solve)"}
+    # E1: every captured H (odometry rounds and solves with no or few
+    # constraints) and the seeded zero / rank-one / rank-two systems, 6x6 and 3x3
+    groups = {}
+    for H, th in cap["e1"]:
+        groups.setdefault((H.shape[-1], th), []).append(H.reshape(-1, *H.shape[-2:]))
+    n_zero = sum(int((torch.cat(v).abs().amax(dim=(1, 2)) == 0).sum())
+                 for v in groups.values())
+    for n in (6, 3):
+        for th in (full.odom_degen_eig_thresh, full.map_degen_eig_thresh):
+            rng = np.random.default_rng(n)
+            J = rng.normal(size=(2, n))
+            built = [h for name, h in eig6_spectra(th, n=n) if name in ("zero", "rank_one")]
+            built.append((J.T @ J * th).astype(np.float32))
+            groups.setdefault((n, th), []).append(torch.as_tensor(np.stack(built), device=dev))
+    worst = 0.0
+    flips = 0
+    for (n, th), items in groups.items():
+        d_p, d_lam, f, _ = e1_compare(torch, torch.cat(items).contiguous(), th)
+        worst, flips = max(worst, d_p, d_lam), flips + f
+    if not n_zero or not any(n == 3 for n, _ in groups):
+        fail("the degenerate courses gave E1 no zero Hessian, or no 3x3 one")
+    Hz = torch.zeros((1, 6, 6), device=dev)
+    th = full.odom_degen_eig_thresh
+    sweeps = int(eig6.eig6(Hz, th)[2][0])
+    b_ms, b_by = e1_bound(sweeps)
+    out["eig6"] = {
+        "matrices": {f"{n}x{n} @ {th}": sum(len(x) for x in v)
+                     for (n, th), v in groups.items()},
+        "zero_captured": n_zero, "near_threshold_flips": flips, "max_abs_err": worst,
+        "ms": cuda_ms(torch, lambda: eig6.degeneracy_projection(Hz, th), 200),
+        "plain_ms": cuda_ms(torch, lambda: eig6.degeneracy_projection_plain(Hz, th), 50),
+        "bound_ms": b_ms, "bound_by": b_by, "sweeps": sweeps, "input": "H = 0"}
+    for key, row in out.items():
+        print(f"  robustness: {key} on degenerate inputs: "
+              + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                          for k, v in row.items()))
+    return out
+
+
+def robustness_phase(torch, dev, card):
+    """The JAX package's behaviour tests on the card (ROADMAP A20): its
+    degenerate scans, loop false positives and stress courses through every
+    entry path, and each kernel against its plain version on what they feed
+    it.  Fails on any check; returns the phase's numbers."""
+    from lego_loam_tpu_torch import config_for
+    from lego_loam_tpu_torch.models import loop as lc
+    from lego_loam_tpu_torch.models import pipeline as pl
+    from lego_loam_tpu_torch.models.batch import BatchPipeline
+    from lego_loam_tpu_torch.ops import knn as knn_ops
+    from tests.torch_courses import (CORRIDOR_CASES, FAITHFUL, LOOP_CHECK_EVERY, ROBUST,
+                                     ROBUST_COURSES, STRESS, STRESS_ALONG_FRAC,
+                                     STRESS_CORRIDOR_N, STRESS_CORRIDOR_STEP,
+                                     STRESS_LAT, STRESS_VERT, STRESS_YAW_ATE,
+                                     STRESS_YAW_FINAL, corridor_clouds,
+                                     corridor_gate_faults, corridor_out_and_back,
+                                     corridor_state, corridor_world, loop_robust_cfg,
+                                     robustness_course, slice_course, stress_corridor,
+                                     stress_errors, stress_fast_yaw, stress_scans)
+
+    t_phase = time.perf_counter()
+    full = config_for("vlp16", deskew=False)
+    small = config_for("vlp16", **ROBUST)
+    courses = {name: robustness_course(name, full.sensor) for name in ROBUST_COURSES}
+    out = {"launches": {}}
+    # 1. the four courses through process_scan at full width (inputs kept),
+    # at the test's config, and the sparse course in FAITHFUL's order
+    with capture_kernel_inputs(torch, dev) as cap:
+        out["launches"]["full"], moved, rows = robust_courses(torch, full, courses, dev,
+                                                             "full width")
+        fcfg = config_for("vlp16", **FAITHFUL)
+        out["launches"]["faithful"] = robust_courses(
+            torch, fcfg, {"empty_and_sparse": courses["empty_and_sparse"]}, dev,
+            "faithful")[0]
+        # 6. (run here so that their searches are kept too) the corridor
+        # loop checks from the port's own state, on the card and the CPU
+        loops = {}
+        true_world = corridor_out_and_back(0.0)[0]
+        clouds = {lm: corridor_clouds(full, corridor_world(lm), true_world)
+                  for lm in (False, True)}
+        for name, lm, drift, over in CORRIDOR_CASES:
+            lcfg = config_for("vlp16", **loop_robust_cfg(**over))
+            _, est, times = corridor_out_and_back(drift)
+            n = len(times)
+            runs = {}
+            for where in (dev, "cpu"):
+                st = corridor_state(lcfg, clouds[lm], est, times, where)
+                before = st.kf_t.clone()
+                k0 = knn_ops.knn.launches
+                new, res = lc.loop_closure_step(st, times[-1], lcfg)
+                launched = knn_ops.knn.launches - k0
+                faults = corridor_gate_faults(name, lcfg, res, before, new, n)
+                if faults:
+                    fail(f"robustness: corridor loop check on {where}: " + "; ".join(faults))
+                runs[str(where)] = (bool(res.closed), new.kf_t[:n].cpu().numpy(),
+                                    float(res.fitness), float(res.drift),
+                                    float(res.obs_ratio), launched)
+            (cc, ck, cf, cd, co, cl), (hc, hk, *_rest) = runs[str(dev)], runs["cpu"]
+            gap = float(np.abs(ck - hk).max())
+            loops[name] = {"closed": cc, "fitness": cf, "drift": cd, "obs_ratio": co,
+                           "knn_launches": cl, "kf_gap_to_cpu_m": gap}
+            print(f"robustness: corridor {name}: closed {cc} (CPU {hc}), fitness {cf:.4f}, "
+                  f"drift {cd:.3f} m, obs_ratio {co:.4f}, {cl} K3 launches, keyframes "
+                  f"{gap * 1e3:.4f} mm from the CPU's")
+            if cc != hc or gap > C6_POS_M:
+                fail(f"robustness: corridor {name} on the card decided {cc}, on the CPU "
+                     f"{hc}; keyframes {gap:.4g} m apart")
+        out["loops"] = loops
+    out["launches"]["tests_config"] = robust_courses(torch, small, courses, dev,
+                                                     "the test's config")[0]
+    out["identical_moved_m"] = moved
+    print(f"robustness: the four degenerate courses ({sum(map(len, courses.values()))} "
+          f"scans) finite at full width and at the test's config; the repeated scan "
+          f"moved {moved:.5f} m; launches {out['launches']}")
+
+    # 2. each kernel on what the courses fed it
+    out["kernels"] = robust_kernel_checks(torch, cap, full, dev)
+    del cap
+
+    # 3. the garbage burst inside one process_chunk
+    gscans = courses["garbage_then_recovery"]
+    pipe = pl.LegoLoamPipeline(full, dev)
+    res = []
+    for c0 in range(0, len(gscans), ROBUST_CHUNK_C):
+        part = gscans[c0:c0 + ROBUST_CHUNK_C]
+        res.append(pipe.process_chunk(*(np.stack([s[i] for s in part]) for i in range(3)),
+                                      t0=part[0][3]))
+    gaps, bad = chunk_gaps(torch, res, rows["garbage_then_recovery"])
+    out["chunk"] = gaps
+    print(f"robustness: the garbage burst inside a chunk of {ROBUST_CHUNK_C}: fused "
+          f"{gaps['fused_m'] * 1e3:.4f} mm / {gaps['fused_deg']:.5f} deg, mapped "
+          f"{gaps['mapped_m'] * 1e3:.4f} mm / {gaps['mapped_deg']:.5f} deg from process_scan")
+    if bad or gaps["fused_m"] > CHUNK_POS_M or gaps["mapped_m"] > CHUNK_POS_M or \
+            gaps["fused_deg"] > CHUNK_ROT_DEG or gaps["mapped_deg"] > CHUNK_ROT_DEG:
+        fail(f"robustness: the chunk differs from process_scan: {gaps}, scans {bad}")
+
+    # 4. the fleet at B = 2: the recovery course beside the slice course
+    _, sscans = slice_course(full.sensor, len(gscans))
+    seqs = [[s[:3] for s in gscans], sscans]
+    chunks = fleet_chunks(seqs, ROBUST_CHUNK_C)
+    bp = BatchPipeline(full, ROBUST_FLEET_B, device=dev)
+    wrappers = kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    bres = [catch_fleet(torch, lambda ch=ch: bp.process_chunk(*ch))[0] for ch in chunks]
+    out["launches"]["fleet_b2"] = {w.__name__: w.launches for w in wrappers}
+    out["fleet"] = {}
+    for b in range(ROBUST_FLEET_B):
+        _, alone = run_alone(torch, full, chunks, b, dev)
+        g, same = fleet_gaps(torch, bres, b, alone)
+        out["fleet"][b] = g
+        print(f"robustness: fleet B = 2, sequence {b} "
+              f"({'garbage then recovery' if b == 0 else 'the slice course'}) against its "
+              f"run alone: fused {g['fused_m'] * 1e3:.4f} mm / {g['fused_deg']:.5f} deg, "
+              f"stats, did_map and loop flags equal {same}")
+        if not same or g["fused_m"] > FLEET_POS_M or g["fused_deg"] > FLEET_ROT_DEG \
+                or g["mapped_m"] > FLEET_POS_M or g["mapped_deg"] > FLEET_ROT_DEG:
+            fail(f"robustness: fleet sequence {b} differs from its run alone: {g}")
+    print(f"robustness: fleet B = 2 launches {out['launches']['fleet_b2']}")
+    if 0 in out["launches"]["fleet_b2"].values():
+        fail(f"robustness: a kernel did not launch in the fleet: {out['launches']['fleet_b2']}")
+
+    # 5. the card against the CPU on the recovery course at the test's config
+    c6, faults = card_against_cpu(torch, small, [s[:3] for s in gscans],
+                                  [s[3] for s in gscans], LOOP_CHECK_EVERY, dev)
+    out["card_vs_cpu"] = c6
+    g = c6["gaps"]
+    print(f"robustness: card vs cpu on the recovery course ({c6['scans']} scans): fused "
+          f"{g['fused_m'] * 1e3:.4f} mm / {g['fused_deg']:.5f} deg, keyframes "
+          f"{g['keyframe_m'] * 1e3:.4f} mm / {g['keyframe_deg']:.5f} deg")
+    if faults:
+        fail("robustness: the card differs from the CPU on the recovery course: "
+             + "; ".join(faults))
+
+    # 7. the stress courses at the test's config
+    scfg = config_for("vlp16", **STRESS)
+    out["stress"] = {}
+    for name, course in (("fast_yaw", stress_fast_yaw), ("corridor", stress_corridor)):
+        world, poses = course()
+        scans = stress_scans(world, poses, scfg.sensor)
+        pipe = pl.LegoLoamPipeline(scfg, dev, collect_stats=False)
+        t0 = time.perf_counter()
+        for k, s in enumerate(scans):
+            pipe.process_scan(*s, t=0.1 * k)
+        traj = pipe.trajectory_numpy()
+        secs = time.perf_counter() - t0
+        e = out["stress"][name] = dict(stress_errors(traj, poses), seconds=secs)
+        print(f"robustness [{card}]: stress {name} ({len(scans)} scans, {secs:.1f} s): "
+              + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                          for k, v in e.items()))
+        if not e["finite"]:
+            fail(f"robustness: the stress {name} trajectory is not finite")
+    y = out["stress"]["fast_yaw"]
+    if not (y["ate"] < STRESS_YAW_ATE and y["final"] < STRESS_YAW_FINAL):
+        fail(f"robustness: fast-yaw ATE {y['ate']:.4f} m / final {y['final']:.4f} m over "
+             f"{STRESS_YAW_ATE} / {STRESS_YAW_FINAL}")
+    # the corridor: held to the one bound of test_stress.py the port meets on
+    # the CPU; the JAX package misses all three (ROADMAP C2)
+    c = out["stress"]["corridor"]
+    path = STRESS_CORRIDOR_STEP * (STRESS_CORRIDOR_N - 1)
+    print(f"robustness: corridor lateral {c['lat']:.4f} m (bound {STRESS_LAT}; the JAX "
+          f"package 0.326 on the CPU, ROADMAP C2), vertical {c['vert']:.4f} m (bound "
+          f"{STRESS_VERT}; 12.23), along {c['along']:.4f} m (bound "
+          f"{STRESS_ALONG_FRAC * path:.2f}; 8.11)")
+    if not c["lat"] < STRESS_LAT:
+        fail(f"robustness: corridor lateral drift {c['lat']:.4f} m over {STRESS_LAT} m")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2984,6 +3476,17 @@ def main() -> None:
     drivers = drivers_phase(torch, dev, card, work.name, bag_path, imu_traj, hscans,
                             hposes)
 
+    # the JAX package's behaviour tests on the card: degenerate scans, loop
+    # false positives, stress courses (ROADMAP A20)
+    clock("robustness")
+    rob = robustness_phase(torch, dev, card)
+    for r, key in zip(results, ("propagate_labels", "label_features", "knn", "eig6")):
+        r["robustness_launches"] = rob["launches"]["full"][key]
+        r["robustness"] = rob["kernels"][r["name"]]
+    for r in results[4:]:
+        r["robustness_launches"] = rob["launches"]["faithful"][r["name"]]
+    print(f"robustness [{card}]: the phase took {rob['seconds']:.1f} s")
+
     # profiler phases last: they must not slow the timed ones
     clock("the profiler")
     k2_device_kernels(torch, results[1])
@@ -3019,7 +3522,7 @@ def main() -> None:
           f"{100 * pimu['device_idle_share']:.1f} %): the IMU adds "
           f"{pimu['device_events_per_scan'] - pon['device_events_per_scan']:.0f} "
           f"device events a scan")
-    for B in FLEET_BATCHES:
+    for B in (1, FLEET_B):
         fleet["runs"][B]["profile"] = pf = profile_fleet(torch, cfg, fchunks, dev, B)
         print(f"fleet [{card}]: torch.profiler over a steady chunk of 6 at B = {B}: "
               f"{pf['device_events_per_scan']:.0f} device events a step "
@@ -3044,7 +3547,8 @@ def main() -> None:
                       "e1_3x3": {k: results[5][k] for k in (
                           "call_ms", "library_call_ms", "sweeps", "matrices",
                           "captured", "near_threshold_flips", "max_sweeps")},
-                      "fleet": fleet, "drivers": drivers, "phase_s": clock.seconds,
+                      "fleet": fleet, "drivers": drivers, "robustness": rob,
+                      "phase_s": clock.seconds,
                       "k1_presets": results[0]["presets"],
                       "k2_hdl64e": results[1]["hdl64e"],
                       "e1": {k: results[3][k] for k in (
@@ -3059,7 +3563,7 @@ def main() -> None:
                                  "launches_in_chunks", "fleet_launches",
                                  "fleet", "shard_shapes", "parallel_launches",
                                  "launches_per_sharded_solve", "drivers_launches",
-                                 "note")
+                                 "robustness_launches", "robustness", "note")
          if key in r}
         for r in results]}))
     print(json.dumps({"ok": True, "device": {

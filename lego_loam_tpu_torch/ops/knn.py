@@ -5,7 +5,8 @@ Dense brute force: ||q - r||^2 = |q|^2 + |r|^2 - 2 q.r, then a masked
 argmin (odometry associations) or an exact k-NN (map 5-NN).  The exact
 k-NN is kernel K3 (``csrc/knn.cu``) on a CUDA tensor; on a CPU tensor it is
 the distance matrix plus the first k columns of a stable sort, which break
-ties to the lowest index like ``lax.top_k``.
+ties to the lowest index like ``lax.top_k`` (over the valid references and
+distinct queries alone, :func:`knn_plain_valid`).
 
 K3 splits the reference set across blocks and merges the per-split top-k
 lists in a second pass; :func:`knn_splits` picks the split count.
@@ -51,9 +52,14 @@ def knn_plain(query, ref, ref_valid, k: int, query_tile: int = 0):
         raise ValueError(f"knn needs 1 <= k <= N = {ref.shape[0]}, got {k}")
     Q = query.shape[0]
     step = query_tile if query_tile and Q > query_tile else max(Q, 1)
+    rr = torch.sum(ref * ref, dim=1)
     idx, d2 = [], []
     for q0 in range(0, Q, step):
-        d = sq_dist_matrix(query[q0: q0 + step], ref, ref_valid)
+        # sq_dist_matrix's values, computed in place (two (Q, N) buffers)
+        q = query[q0: q0 + step]
+        d = torch.sum(q * q, dim=1, keepdim=True) + rr[None, :]
+        d.sub_((2.0 * q) @ ref.T).clamp_(min=0.0)
+        d.masked_fill_(~ref_valid[None, :], _INF)
         # the first k columns of a stable sort, as k passes of "take the
         # first minimum, then rule it out" (several times cheaper)
         cols = []
@@ -64,6 +70,52 @@ def knn_plain(query, ref, ref_valid, k: int, query_tile: int = 0):
         idx.append(torch.stack([i for i, _ in cols], 1).to(torch.int32))
         d2.append(torch.stack([v for _, v in cols], 1))
     return torch.cat(idx), torch.cat(d2)
+
+
+def distinct_rows(x: torch.Tensor):
+    """(rows, inverse) of a (Q, 3) tensor: its distinct rows (in
+    lexicographic order) and, for each row of x, its index among them; -0.0
+    equals 0.0 and a row with a NaN stands alone."""
+    order = torch.arange(x.shape[0], device=x.device)
+    for c in (2, 1, 0):                     # a stable sort a column: lexsort
+        order = order[torch.sort(x[order, c], stable=True).indices]
+    xs = x[order]
+    first = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    first[1:] = (xs[1:] != xs[:-1]).any(1)
+    inv = torch.empty_like(order)
+    inv[order] = torch.cumsum(first, 0) - 1
+    return xs[first], inv
+
+
+def knn_plain_valid(query, ref, ref_valid, k: int, query_tile: int = 0):
+    """knn_plain's answer from the valid references and the distinct query
+    rows alone (a CPU tensor's path: dynamic shapes, no device to keep in
+    step): the same neighbours in the same order, ties to the lowest index,
+    and, past the valid references, the lowest invalid indices at 1e30.
+    The distance matrix shrinks to (distinct queries) x (valid references):
+    a loop check's ICP asks 4352 x 16384 and needs ~2100 x ~5700.  Each
+    distance is the same formula; MKL's sgemm rounds the 3-term dot alike at
+    both shapes (a test holds the two bit-equal at the pipelines' shapes;
+    with a handful of valid references its small-matrix path may round the
+    last bit otherwise)."""
+    if not 1 <= k <= ref.shape[0]:
+        raise ValueError(f"knn needs 1 <= k <= N = {ref.shape[0]}, got {k}")
+    Q = query.shape[0]
+    vi = torch.nonzero(ref_valid).flatten()
+    kk = min(k, vi.numel())
+    idx = torch.empty((Q, 0), dtype=torch.int32, device=query.device)
+    d2 = torch.empty((Q, 0), dtype=query.dtype, device=query.device)
+    if kk and Q:
+        rows, inv = distinct_rows(query)
+        i, d = knn_plain(rows, ref.index_select(0, vi),
+                         torch.ones_like(vi, dtype=torch.bool), kk, query_tile)
+        idx, d2 = vi[i.long()].to(torch.int32)[inv], d[inv]
+    if kk < k:
+        pad = torch.nonzero(~ref_valid).flatten()[: k - kk].to(torch.int32)
+        idx = torch.cat([idx, pad.expand(Q, -1)], 1)
+        d2 = torch.cat([d2, torch.full((Q, k - kk), _INF, dtype=d2.dtype,
+                                       device=d2.device)], 1)
+    return idx, d2
 
 
 def knn_splits(Q: int, N: int, B: int = 1) -> int:
@@ -84,8 +136,9 @@ def knn(query, ref, ref_valid, k: int, query_tile: int = 0):
     query (..., Q, 3) f32, ref (..., N, 3) f32, ref_valid (..., N) bool,
     1 <= k <= 8; leading dimensions are independent searches.  Returns
     (idx (..., Q, k) int32, d2 (..., Q, k) f32), ascending; invalid refs
-    rank last with d2 ~ 1e30.  CPU tensors run :func:`knn_plain` a search
-    at a time (query_tile bounds its memory; the kernel needs no tiling).
+    rank last with d2 ~ 1e30.  CPU tensors run :func:`knn_plain_valid` a
+    search at a time (query_tile bounds its memory; the kernel needs no
+    tiling).
     Under torch.func.vmap the batch goes into the same launch."""
     return _knn_op(query, ref, ref_valid, int(k), int(query_tile))
 
@@ -95,8 +148,8 @@ def _knn_op(query: torch.Tensor, ref: torch.Tensor, ref_valid: torch.Tensor,
             k: int, query_tile: int) -> tuple[torch.Tensor, torch.Tensor]:
     if query.is_cuda:
         return _launch_knn(query, ref, ref_valid, k)
-    return kb.per_element(knn_plain, query.dim() - 2, query, ref, ref_valid, k,
-                          query_tile)
+    return kb.per_element(knn_plain_valid, query.dim() - 2, query, ref, ref_valid,
+                          k, query_tile)
 
 
 @_knn_op.register_vmap

@@ -118,3 +118,29 @@ def test_masked_argmin_matches_jnp():
     ti, tv = tknn.masked_argmin(td, torch.from_numpy(mask))
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("q_n,r_n,frac,k,tile", [
+    (4352, 16384, 0.35, 1, 1024), (2048, 16384, 0.5, 5, 512),
+    (1024, 8192, 0.4, 5, 256), (300, 2000, 1.0, 8, 0), (50, 10, 0.2, 5, 0),
+    (40, 10, 0.0, 3, 0)])
+def test_valid_only_path_equals_knn_plain(q_n, r_n, frac, k, tile):
+    """The CPU path (knn_plain_valid: the valid references and distinct
+    queries alone) returns knn_plain's indices and distances bit for bit,
+    at the loop check's ICP shape (4352 x 16384, k = 1), the mapping
+    shapes, a full set, a set with fewer valid references than k and one
+    with none (sentinels: the lowest invalid indices at 1e30); a third of
+    the queries are one repeated padding point.  The two small sets take
+    whole-metre points, exact in float32: with a handful of references
+    MKL's small-matrix path may round the 3-term dot's last bit otherwise
+    than at the full width."""
+    rng = np.random.default_rng(q_n + k)
+    q, r = _cloud(rng, q_n, 15.0), _cloud(rng, r_n, 15.0)
+    if r_n <= 16:
+        q, r = np.round(q), np.round(r)
+    q[::3] = 0.0
+    valid = rng.random(r_n) < frac
+    q, r, valid = map(torch.from_numpy, (q, r, valid))
+    want = tknn.knn_plain(q, r, valid, k, tile)
+    got = tknn.knn_plain_valid(q, r, valid, k, tile)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

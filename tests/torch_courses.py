@@ -26,6 +26,15 @@ same configs over the same seeded synthetic scans.
   * E1: seeded symmetric 6x6 or 3x3 systems for the degeneracy
     projection (eig6_spectra), every eigenvalue well away from the
     threshold.
+  * A20, the JAX package's behaviour tests: ROBUST and
+    robustness_course() are tests/test_robustness.py's config and its four
+    degenerate courses (ROBUST_COURSES); loop_robust_cfg(), CORRIDOR_START,
+    CORRIDOR_LANDMARKS, corridor_out_and_back() and corridor_state() are
+    tests/test_loop_robustness.py's _cfg, START, LANDMARKS, _out_and_back
+    and _make_state, the state built with the port's voxel_downsample;
+    STRESS, stress_corridor() and stress_fast_yaw() are
+    tests/test_stress.py's config and courses (scans cast by
+    stress_scans).
 
 Scans come from the port's raycaster, which casts byte-identical scans to
 the JAX package's (tests/test_torch_import.py).
@@ -365,3 +374,265 @@ def eig6_spectra(thresh: float, seed: int = 0, n: int = 6) -> list:
         H = H * (thresh * (1.5 if near >= thresh else 0.5) / near)
         out.append((f"gram_{k}", _sym32(H)))
     return out
+
+
+# ---------------------------------------------------------------- A20
+
+# tests/test_robustness.py's CFG overrides (config_for("vlp16", **ROBUST))
+ROBUST = dict(deskew=False, max_keyframes=32, max_map_corner=1024,
+              max_map_surf=4096, kf_corner_cap=256, kf_surf_cap=1024,
+              kf_outlier_cap=256, max_scan_corner_ds=256, max_scan_surf_ds=1024,
+              nn_query_tile=256)
+# its four tests, one course each
+ROBUST_COURSES = ("empty_and_sparse", "nan_and_extreme", "identical_repeated",
+                  "garbage_then_recovery")
+IDENTICAL_BOUND = 0.02   # m, test_identical_repeated_scans' displacement bound
+
+
+def robustness_course(name: str, sensor) -> list:
+    """The scans of one of tests/test_robustness.py's tests, in its order,
+    as (xyz, valid, ring, t) with t None where the test passes no stamp
+    (process_scan then stamps frame * scan_period):
+
+      * empty_and_sparse: an all-invalid scan, one valid point, 50 random
+        points (seed 0);
+      * nan_and_extreme: the same scan twice (seed 1): every 7th point NaN
+        and invalid (then zeroed), every 7th from the 2nd at 1e8 m and
+        valid (the range gate must drop it);
+      * identical_repeated: one noiseless scan of world seed 2 from the
+        origin, four times (zero motion);
+      * garbage_then_recovery: world seed 3 on a 6-pose 8 m arc of 0.15 pi:
+        poses 0-1, two all-invalid scans, poses 2-5."""
+    P = sensor.n_scan * sensor.horizon_scan
+    ring = (np.arange(P) % sensor.n_scan).astype(np.int32)
+    empty = (np.zeros((P, 3), np.float32), np.zeros(P, bool), ring)
+    if name == "empty_and_sparse":
+        rng = np.random.default_rng(0)
+        one = np.zeros((P, 3), np.float32)
+        one[0] = [5.0, 1.0, 0.2]
+        one_valid = np.zeros(P, bool)
+        one_valid[0] = True
+        fifty = np.zeros((P, 3), np.float32)
+        fifty[:50] = rng.uniform(-20, 20, (50, 3))
+        fifty_valid = np.zeros(P, bool)
+        fifty_valid[:50] = True
+        return [empty + (None,), (one, one_valid, ring, None),
+                (fifty, fifty_valid, ring, None)]
+    if name == "nan_and_extreme":
+        rng = np.random.default_rng(1)
+        xyz = rng.uniform(-30, 30, (P, 3)).astype(np.float32)
+        xyz[::7] = np.nan
+        xyz[1::7] = 1e8
+        valid = np.ones(P, bool)
+        valid[::7] = False
+        xyz = np.where(valid[:, None], xyz, 0.0).astype(np.float32)
+        return [(xyz, valid, ring, 0.1 * k) for k in range(2)]
+    if name == "identical_repeated":
+        xyz, valid, r = syn.raycast(syn.default_world(seed=2), np.eye(3),
+                                    np.array([0.0, 0.0, 1.6]), sensor)
+        return [(xyz, valid, r, 0.1 * k) for k in range(4)]
+    if name == "garbage_then_recovery":
+        world = syn.default_world(seed=3)
+        poses = syn.circle_trajectory(6, radius=8.0, arc=0.15 * np.pi)
+        good = [syn.raycast(world, *poses[k], sensor) for k in range(6)]
+        return ([good[k] + (0.1 * k,) for k in range(2)]
+                + [empty + (0.2 + 0.1 * k,) for k in range(2)]
+                + [good[k] + (0.2 + 0.1 * k,) for k in range(2, 6)])
+    raise ValueError(f"unknown robustness course {name!r}")
+
+
+# tests/test_loop_robustness.py: the keyframe 0 pose in the world (the map
+# origin), the landmark boxes of its capped corridor, and its _cfg
+CORRIDOR_START = np.array([2.0, 0.0, 1.6])
+CORRIDOR_LANDMARKS = np.array([
+    [6.0, 1.2, 0.0, 7.6, 2.6, 2.4],      # cabinet against the +y wall
+    [10.5, -2.6, 0.0, 11.3, -1.4, 1.8],  # crate against the -y wall
+])
+CORRIDOR_REVISIT_X = 8.0
+
+
+def loop_robust_cfg(**over) -> dict:
+    """tests/test_loop_robustness.py's _cfg(**over) overrides (VLP-16, loop
+    closure on, the reference's 100 ICP iterations, honest corridor
+    odometry noise in the pose graph)."""
+    over.setdefault("loop_icp_iters", 100)
+    return dict(max_keyframes=32, kf_corner_cap=256, kf_surf_cap=4096,
+                kf_outlier_cap=256, max_map_corner=2048, max_map_surf=16384,
+                nn_query_tile=1024, loop_closure_enabled=True,
+                pg_trans_sigma=0.1, pg_rot_sigma=0.01, **over)
+
+
+def corridor_world(landmarks: bool):
+    """The open 300 m corridor without end caps, or the 40 m capped one
+    with the landmark boxes."""
+    if landmarks:
+        return syn.corridor_world(landmarks=CORRIDOR_LANDMARKS, length=40.0)
+    return syn.corridor_world(length=300.0, end_caps=False)
+
+
+def corridor_out_and_back(drift_x: float, far_x: float = 14.0,
+                          revisit_x: float = CORRIDOR_REVISIT_X):
+    """_out_and_back: the first pass at world x = 2..far every 0.5 m
+    (estimate exact), then a return to world x = revisit_x with the
+    estimate drifted drift_x along the axis; (true_world, est_map, times),
+    map frame = world minus CORRIDOR_START; the return stamped 40 s after
+    the last first-pass keyframe."""
+    true_world, est_map, times = [], [], []
+    for i, x in enumerate(np.arange(CORRIDOR_START[0], far_x + 0.25, 0.5)):
+        w = np.array([x, 0.0, CORRIDOR_START[2]])
+        true_world.append((np.eye(3), w))
+        est_map.append((np.eye(3), w - CORRIDOR_START))
+        times.append(float(i))
+    w = np.array([revisit_x, 0.0, CORRIDOR_START[2]])
+    true_world.append((np.eye(3), w))
+    est_map.append((np.eye(3), w - CORRIDOR_START + np.array([drift_x, 0.0, 0.0])))
+    times.append(times[-1] + 40.0)
+    return true_world, est_map, times
+
+
+def corridor_clouds(cfg, world, true_world, noise: float = 0.01) -> list:
+    """Each keyframe's raycast at its true world pose (seed 900 + k), as
+    _make_state casts them: (xyz, valid) host arrays."""
+    out = []
+    for k, (Rt, tt) in enumerate(true_world):
+        xyz, valid, _ = syn.raycast(world, Rt, tt, cfg.sensor, noise=noise,
+                                    rng=np.random.default_rng(900 + k))
+        out.append((xyz, valid))
+    return out
+
+
+def corridor_state(cfg, clouds, est_map, times, device):
+    """_make_state with the port: a MappingState on `device` whose keyframe
+    surf blocks are the port's voxel_downsample of the clouds captured at
+    the true poses, while the keyframe poses and chain measurements carry
+    the estimate's drift; aft_mapped is the last estimate."""
+    import torch
+
+    from lego_loam_tpu_torch.models import mapping as mp
+    from lego_loam_tpu_torch.ops.voxel import voxel_downsample
+    from lego_loam_tpu_torch.utils.math3d import Pose
+
+    assert np.allclose(est_map[0][1], 0.0)
+    state = mp.init_state(cfg, device)
+    kf_R = state.kf_R.cpu().numpy()
+    kf_t = state.kf_t.cpu().numpy()
+    meas_R = state.kf_meas_R.cpu().numpy()
+    meas_t = state.kf_meas_t.cpu().numpy()
+    kf_time = state.kf_time.cpu().numpy()
+    kf_surf, kf_surf_valid = state.kf_surf.clone(), state.kf_surf_valid.clone()
+    for k, (xyz, valid) in enumerate(clouds):
+        pts, ok = voxel_downsample(torch.as_tensor(xyz, device=device),
+                                   torch.as_tensor(valid, device=device),
+                                   cfg.leaf_scan_surf, cfg.kf_surf_cap)
+        kf_surf[k], kf_surf_valid[k] = pts, ok
+        Re, te = est_map[k]
+        kf_R[k], kf_t[k] = Re, te
+        kf_time[k] = times[k]
+        if k > 0:
+            Rp, tp = est_map[k - 1]
+            meas_R[k] = Rp.T @ Re
+            meas_t[k] = Rp.T @ (te - tp)
+
+    def dev32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    return state._replace(
+        kf_R=dev32(kf_R), kf_t=dev32(kf_t), kf_surf=kf_surf,
+        kf_surf_valid=kf_surf_valid, kf_meas_R=dev32(meas_R),
+        kf_meas_t=dev32(meas_t), kf_time=dev32(kf_time),
+        n_kf=torch.tensor(len(clouds), dtype=torch.int32, device=device),
+        aft_mapped=Pose(dev32(est_map[-1][0]), dev32(est_map[-1][1])))
+
+
+# the three corridor cases of tests/test_loop_robustness.py: (name, landmark
+# world, drift along the axis, config overrides)
+CORRIDOR_CASES = (("open_corridor", False, 1.5, {}),
+                  ("landmark_revisit", True, 1.5, {}),
+                  ("drift_gate", True, 3.5, {}),
+                  ("drift_gate_raised", True, 3.5, dict(loop_drift_frac=0.5)))
+
+def corridor_gate_faults(name: str, cfg, res, kf_t_before, new_state, n: int) -> list:
+    """tests/test_loop_robustness.py's assertions on one loop check of the
+    CORRIDOR_CASES case `name` (res a LoopResult, new_state the state
+    after it, kf_t_before the keyframe positions before, n keyframes), as
+    a list of the ones that fail."""
+    drift = {c[0]: c[2] for c in CORRIDOR_CASES}[name]
+    fitness, obs, closed = float(res.fitness), float(res.obs_ratio), bool(res.closed)
+    def host(a):
+        return np.asarray(a.cpu() if hasattr(a, "cpu") else a)
+
+    kf_t = host(new_state.kf_t)
+    x_corr = float(kf_t[n - 1, 0])
+    x_true = CORRIDOR_REVISIT_X - CORRIDOR_START[0]
+    checks = {"the fit is tight": fitness < cfg.history_keyframe_fitness_score,
+              "no loop edge": int(new_state.n_loops) == 0}
+    if name == "open_corridor":
+        checks.update({"obs_ratio exposes the slip axis": obs < cfg.loop_degen_eig_frac,
+                       "rejected": not closed,
+                       "keyframes untouched": np.array_equal(kf_t, host(kf_t_before))})
+    elif name == "drift_gate":
+        checks.update({"ICP recovers most of the offset": float(res.drift) > 2.5,
+                       "rejected": not closed})
+    else:
+        checks = {"closed": closed,
+                  "the revisit moves back": abs(x_corr - x_true) < 0.5 * drift}
+        if name == "landmark_revisit":
+            checks["landmarks pin x"] = obs >= cfg.loop_degen_eig_frac
+    return [f"{name}: not {what} (fitness {fitness:.4f}, drift {float(res.drift):.3f}, "
+            f"obs_ratio {obs:.4f}, closed {closed}, corrected x {x_corr:.3f})"
+            for what, ok in checks.items() if not ok]
+
+
+# tests/test_stress.py's CFG overrides, its corridor (50 scans at 0.8 m down
+# a 300 m corridor with poles every 12 m) and fast-yaw (40 scans, a full
+# turn on a 4 m circle) courses, 2 cm range noise (seed = seed0 + index)
+STRESS = dict(deskew=False, max_keyframes=128, max_map_corner=4096,
+              max_map_surf=16384, kf_corner_cap=512, kf_surf_cap=2048,
+              kf_outlier_cap=512, max_scan_corner_ds=512, max_scan_surf_ds=2048,
+              nn_query_tile=512)
+STRESS_CORRIDOR_N, STRESS_CORRIDOR_STEP = 50, 0.8
+STRESS_YAW_N = 40
+# its bounds: the corridor's lateral / vertical (m) and along-axis (a
+# fraction of the path), the fast-yaw ATE and final error (m)
+STRESS_LAT, STRESS_VERT, STRESS_ALONG_FRAC = 0.15, 0.15, 0.05
+STRESS_YAW_ATE, STRESS_YAW_FINAL = 0.25, 0.35
+
+
+def stress_corridor():
+    """(world, poses) of test_corridor_degenerate_geometry_bounded_drift."""
+    world = syn.corridor_world(length=300.0, pole_period=12.0, end_caps=False)
+    return world, syn.straight_trajectory(STRESS_CORRIDOR_N, start=2.0,
+                                          step=STRESS_CORRIDOR_STEP)
+
+
+def stress_fast_yaw():
+    """(world, poses) of test_fast_yaw_high_dynamics."""
+    poses = []
+    for k in range(STRESS_YAW_N):
+        a = 2.0 * np.pi * k / STRESS_YAW_N
+        poses.append((yaw_R(a), np.array([4.0 * np.sin(a), 4.0 * (1 - np.cos(a)),
+                                          1.6])))
+    return syn.default_world(seed=3), poses
+
+
+def stress_scans(world, poses, sensor, noise: float = 0.02, seed0: int = 0):
+    """test_stress.py's _run scans: (xyz, valid, ring) a pose."""
+    return [syn.raycast(world, R, t, sensor, noise=noise,
+                        rng=np.random.default_rng(seed0 + k))
+            for k, (R, t) in enumerate(poses)]
+
+
+def stress_errors(traj, poses) -> dict:
+    """test_stress.py's measures of a trajectory (N, 3) in the first
+    pose's frame (the courses start unrotated) against the course: the
+    largest lateral (y), vertical (z) and along-axis (x) errors, the ATE
+    and the final error (m)."""
+    traj = np.asarray(traj, np.float64)
+    gt = np.asarray([t for (_, t) in poses]) - poses[0][1]
+    err = traj - gt
+    return {"lat": float(np.abs(err[:, 1]).max()),
+            "vert": float(np.abs(err[:, 2]).max()),
+            "along": float(np.abs(err[:, 0]).max()),
+            "ate": float(np.sqrt(np.mean(np.sum(err ** 2, axis=1)))),
+            "final": float(np.linalg.norm(err[-1])),
+            "finite": bool(np.isfinite(traj).all())}
