@@ -1,0 +1,9 @@
+"""The benchmark's CPU tests import the harness as slam_bench.* from the
+repository's root."""
+
+import sys
+from pathlib import Path
+
+ROOT = str(Path(__file__).resolve().parents[2])
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
