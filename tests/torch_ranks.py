@@ -17,6 +17,7 @@ from __future__ import annotations
 import datetime
 import itertools
 import threading
+import time
 
 import torch
 import torch.distributed as dist
@@ -29,14 +30,19 @@ from lego_loam_tpu_torch.parallel.comm import Comm
 from lego_loam_tpu_torch.utils.math3d import Pose
 
 GLOO_TIMEOUT_S = 60     # a collective that waits longer fails
-JOIN_TIMEOUT_S = 600    # the whole run
+# the whole run, one deadline for all ranks: above GLOO_TIMEOUT_S, so that
+# a collective that hangs fails first with gloo's own error, which names
+# it.  The longest run_ranks call of test_torch_parallel.py took 3.17 s
+# (8 ranks; the longest of 30 calls in three runs of the file on a CPU host).
+JOIN_TIMEOUT_S = 90
 _runs = itertools.count()
 
 
 def run_ranks(fn, world: int, join_timeout: float = JOIN_TIMEOUT_S) -> list:
     """fn(comm) on `world` thread ranks; their results in rank order.  The
-    first rank's exception is raised again here; a rank still running after
-    `join_timeout` seconds raises TimeoutError."""
+    first rank's exception is raised again here; a rank still running
+    `join_timeout` seconds after the ranks start (one deadline for all of
+    them) raises TimeoutError."""
     store = dist.PrefixStore(f"ranks{next(_runs)}", dist.HashStore())
     out, errs = [None] * world, [None] * world
 
@@ -52,8 +58,9 @@ def run_ranks(fn, world: int, join_timeout: float = JOIN_TIMEOUT_S) -> list:
                for r in range(world)]
     for t in threads:
         t.start()
+    deadline = time.monotonic() + join_timeout
     for t in threads:
-        t.join(join_timeout)
+        t.join(max(0.0, deadline - time.monotonic()))
     for r, e in enumerate(errs):
         if e is not None:
             raise e
