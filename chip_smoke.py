@@ -8,7 +8,7 @@ Phases (any failure exits non-zero before the result lines):
 
   1. card: name and power limit from nvidia-smi, torch and CUDA versions;
      refuses to run without a CUDA device;
-  2. build: nvcc builds the four kernels of csrc/ (sm_90a; one nvcc a
+  2. build: nvcc builds the five kernels of csrc/ (sm_90a; one nvcc a
      source, all started together, then one link) and prints the time and
      the register / shared-memory use ptxas reports;
   3. kernels against their plain PyTorch versions on the card, on inputs
@@ -42,10 +42,19 @@ Phases (any failure exits non-zero before the result lines):
      on tests/test_features.py's scan equal to the NumPy oracle of the C++
      reference's order (oracle_extract's labels); E1 at 3x3 on the H of
      the two-step odometry's phases over 7 scans and on seeded 3x3
-     spectra, held and timed as at 6x6;
+     spectra, held and timed as at 6x6.  K4, the odometry's
+     correspondence search (no TPU kernel behind it: the JAX package
+     searches dense (Q, N) matrices in jnp), on the odometry's own
+     searches of a steady scan (the slice's corner and gated knn surf
+     search, FAITHFUL's ungated tri search, the HDL-64E path's) held to
+     its plain version by tests/torch_courses.assoc_faults, timed beside
+     its bound (~10 operations a candidate pair: every query against every
+     valid reference, then against those within 2 rings of its nearest's)
+     and each search stacked to the benchmark's fleets (B = 256 VLP-16,
+     64 HDL-64E) in one launch;
   4. the slice: LegoLoamPipeline(config_for("vlp16", deskew=False), "cuda")
      at the full default capacities (max_keyframes=4096) over 30 scans of a
-     circle course with 1 cm range noise; asserts that all four kernels
+     circle course with 1 cm range noise; asserts that all five kernels
      were launched on that path and that the fused-pose ATE is under
      0.15 m; prints steady-state scans/s, per-stage ms, host syncs per scan
      and peak device memory, and fails unless a plain and a mapping scan
@@ -55,7 +64,7 @@ Phases (any failure exits non-zero before the result lines):
      Then the same 30 scans through process_chunk in chunks of 10 host
      arrays, with and without collect_stats: fused and mapped poses
      within 1 mm / 0.01 deg of the per-scan run, equal stats, did_map and
-     keyframe count, ATE under 0.15 m, all four kernels launched inside
+     keyframe count, ATE under 0.15 m, all five kernels launched inside
      process_chunk, host syncs per chunk 1 with collect_stats and 0
      without (printed by call site), scans/s of both modes; 6 scans of
      process_scan with collect_stats=False must make no host sync.  The
@@ -81,7 +90,7 @@ Phases (any failure exits non-zero before the result lines):
      tests/test_hdl64e.py's course with 2 cm range noise, each point moved
      half a row up into the middle of its elevation row (mid_row, from
      tests/test_torch_sensor_rows.py), fed without a ring channel (rows
-     from elevation math); asserts that all four kernels, K1 among them,
+     from elevation math); asserts that all five kernels, K1 among them,
      were launched on it and that the ATE is under tests/test_hdl64e.py's
      0.2 m; prints the same numbers as the slice;
   6. the loop-closure path at full width:
@@ -90,7 +99,7 @@ Phases (any failure exits non-zero before the result lines):
      max_loop_edges=128, pg_gn_iters=6), only the course's own knobs set as
      tests/test_loop_pipeline.py sets them (tests/torch_courses.py), over
      its 16-scan out-and-back course with a loop check every 2nd scan;
-     asserts that a loop closed, that all four kernels ran on the path and
+     asserts that a loop closed, that all five kernels ran on the path and
      K3 inside every loop check, the ATE under 0.15 m and the final pose
      within 0.12 m of the truth; prints ms a loop check (synchronised) by
      part (gather + voxel, ICP, plane_information, solve_pose_graph), host
@@ -144,7 +153,7 @@ Phases (any failure exits non-zero before the result lines):
      1000 b + k; sequence 0 is the slice's course) through
      BatchPipeline(cfg, B, device="cuda").process_chunk in chunks of 10 at
      B = 1, 2, 4 and 8, vmap's per-example fallback an error: 0 host syncs
-     a chunk, every kernel launched, and K1, K2, K3 and E1 launched as often
+     a chunk, every kernel launched, and K1, K2, K3, E1 and K4 launched as often
      a chunk at B = 8 as at B = 1 (K1 times its cooperative launches a call
      at B = 8, printed); each sequence at B = 8 against its own run through
      LegoLoamPipeline(cfg, "cuda").process_chunk: equal stats, did_map,
@@ -152,7 +161,8 @@ Phases (any failure exits non-zero before the result lines):
      (FLEET_POS_M says why not 1 mm), ATE under 0.15 m; each kernel's
      batched launch at B = 8 on the fleet's own inputs against its plain
      version a sequence at a time (K1, K2 exact; K3 distances to rtol
-     1e-4 / atol 1e-3; E1 P within 1e-5), timed beside the batch's bound;
+     1e-4 / atol 1e-3; E1 P within 1e-5; K4 by assoc_faults), timed beside
+     the batch's bound;
      the loop-on arm: the loop path's config at B = 2 over the out-and-back
      course and the same course in world seed 7, in chunks of 4: the same
      loops closed and stats as each sequence alone, at most one host sync
@@ -200,8 +210,9 @@ Phases (any failure exits non-zero before the result lines):
      last in the whole run (after phase 10: in a run that traced it
      before, phase 10's first K2 session saw no device work),
      run_synthetic --imu under utils/tracing.trace, held as the --loop
-     run, whose Chrome trace must name the four kernels' custom ops
-     (lego::label_prop, lego::label_features, lego::knn, lego::eig6);
+     run, whose Chrome trace must name the five kernels' custom ops
+     (lego::label_prop, lego::label_features, lego::knn, lego::eig6,
+     lego::odom_assoc);
  9d. robustness (robustness_phase; tests/test_robustness.py,
      tests/test_loop_robustness.py and tests/test_stress.py on the card,
      ROADMAP A20), each check failing the run: test_robustness.py's four
@@ -220,8 +231,9 @@ Phases (any failure exits non-zero before the result lines):
      mapping shape) with equal sentinel slots and indices (near ties
      counted) and distances within 1e-3, E1 at 6x6 and 3x3 (zero
      Hessians captured, zero / rank-one / rank-two ones built) as phase
-     3 holds it; each timed on its most degenerate input beside its
-     bound; the recovery course through process_chunk in chunks of 4 (the
+     3 holds it; K4 on every captured search (references of empty scans,
+     NaN query rows) by assoc_faults; each timed on its most degenerate
+     input beside its bound; the recovery course through process_chunk in chunks of 4 (the
      burst inside the first) within 1 mm / 0.01 deg of process_scan with
      equal stats; BatchPipeline at B = 2, the recovery course beside the
      slice course, each within 1 cm / 0.1 deg of its run alone with equal
@@ -358,7 +370,12 @@ DRIVER_FRAMES = 30
 KITTI_CHUNK_C = 4
 SOAK_CUT = dict(n_laps=2, chunk=64, step=0.545)
 SOAK_CUT_KEYFRAMES = 128
-TRACE_OPS = ("lego::label_prop", "lego::label_features", "lego::knn", "lego::eig6")
+TRACE_OPS = ("lego::label_prop", "lego::label_features", "lego::knn", "lego::eig6",
+             "lego::odom_assoc")
+# the launch counts of kernel_wrappers(), by wrapper name: the `key` of
+# each kernel's row in main()'s results (the other rows' keys are those of
+# mode_counts())
+KERNEL_KEYS = ("propagate_labels", "label_features", "knn", "eig6", "assoc")
 # the robustness phase: the recovery course in chunks of ROBUST_CHUNK_C (its
 # burst inside the first) and beside the slice course in a fleet of
 # ROBUST_FLEET_B
@@ -438,11 +455,28 @@ def bound(n_bytes: int, ops: float, ops_per_s: float = FP32_OPS_PER_S):
 
 
 def kernel_wrappers():
-    """The wrappers of the four kernels, each counting its launches."""
-    from lego_loam_tpu_torch.ops import eig6, features, knn, segmentation
+    """The wrappers of the five kernels, each counting its launches."""
+    from lego_loam_tpu_torch.ops import assoc, eig6, features, knn, segmentation
 
     return (segmentation.propagate_labels, features.label_features, knn.knn,
-            eig6.eig6)
+            eig6.eig6, assoc.assoc)
+
+
+def kernel_rows(results):
+    """The five kernels' rows of main()'s `results`, each `key` a launch
+    count of kernel_wrappers()."""
+    return [r for r in results if r["key"] in KERNEL_KEYS]
+
+
+def mode_rows(results):
+    """The rows of K2's sequential order and E1 at 3x3, each `key` a launch
+    count of mode_counts()."""
+    return [r for r in results if r["key"] not in KERNEL_KEYS]
+
+
+def row_of(results, key):
+    """The row of main()'s `results` with this `key`."""
+    return next(r for r in results if r["key"] == key)
 
 
 def mode_counts(zero: bool = False) -> dict:
@@ -524,7 +558,7 @@ def check_k1(torch, cfg, imgs, dev):
               f"({c['bound_by']}), {100 * c['bound_ms'] / c['ms']:.2f} % of it")
     c = cases[0]
     return {
-        "name": "label_prop", "route": "cuda",
+        "name": "label_prop", "key": "propagate_labels", "route": "cuda",
         "source": "lego_loam_tpu_torch/csrc/label_prop.cu",
         "replaces": "lego_loam_tpu/ops/segmentation_pallas.py:120",
         "max_abs_err": 0.0, "library_ms": None, "presets": cases[len(imgs):],
@@ -656,7 +690,7 @@ def check_k2(torch, cfg, imgs, hcfg, himg, dev):
               f"{h['prep_call_ms']:.4f} ms of host time a call")
     print(f"  K2 label_features presets: equal, (sharp, flat) picks {presets}")
     return {
-        "name": "label_features", "route": "cuda",
+        "name": "label_features", "key": "label_features", "route": "cuda",
         "source": "lego_loam_tpu_torch/csrc/pick_features.cu",
         "replaces": "lego_loam_tpu/ops/features_pallas.py:87",
         "max_abs_err": 0.0, "library_ms": None, "hdl64e": out["hdl64e"],
@@ -730,7 +764,8 @@ def check_k2_sequential(torch, fcfg, imgs, bimgs, hcfg, himg, dev):
           f"a scan at a time; the oracle scan's {int((olab != 0).sum())} labels "
           f"equal to oracle_extract's")
     return {
-        "name": "label_features_sequential", "route": "cuda",
+        "name": "label_features_sequential", "key": "label_features_sequential",
+        "route": "cuda",
         "source": "lego_loam_tpu_torch/csrc/pick_features.cu",
         "replaces": "lego_loam_tpu/ops/features.py:222",
         "note": "no TPU kernel: the JAX package runs the sequential order as a "
@@ -835,7 +870,7 @@ def check_k3(torch, cfg, world, dev):
               f"calls, {r['cdist_topk_ms']:.4f} ms")
     c, s = out["corner"], out["surf"]
     return {
-        "name": "knn", "route": "cuda",
+        "name": "knn", "key": "knn", "route": "cuda",
         "source": "lego_loam_tpu_torch/csrc/knn.cu",
         "replaces": "lego_loam_tpu/ops/knn_pallas.py:81",
         "max_abs_err": max(c["err"], s["err"]),
@@ -845,6 +880,100 @@ def check_k3(torch, cfg, world, dev):
     }, (f"ms/plain_ms at {cfg.max_scan_surf_ds}x{cfg.max_map_surf}; at "
         f"{cfg.max_scan_corner_ds}x{cfg.max_map_corner}: kernel {c['ms']:.4f} ms, "
         f"plain {c['plain_ms']:.4f} ms")
+
+
+def k4_work(search, idx) -> int:
+    """Candidate pairs K4's search of these inputs needs: every query with
+    every valid reference (the nearest), then with the valid references
+    within 2 rings of its nearest's ring (the ring lists)."""
+    _, _, v, ring, _, _ = search
+    r0 = ring[idx[:, 0].long()]
+    near = ((ring[None, :] - r0[:, None]).abs() <= 2) & v[None, :]
+    return int(v.sum()) * idx.shape[0] + int(near.sum())
+
+
+def k4_case(torch, search, kind, tag):
+    """K4 against its plain version on one search (tests/torch_courses.
+    assoc_faults); kernel, call and plain time and the bound: each input
+    read and each output written once, ~10 operations a candidate pair
+    (the dot product's 3, two adds, the clamp, the NaN key, the gate, the
+    compare and its select)."""
+    from lego_loam_tpu_torch.ops import assoc
+    from tests.torch_courses import assoc_faults
+
+    def kernel():
+        return assoc.assoc(*search[:4], kind, *search[4:])
+
+    idx, d2 = kernel()
+    plain = assoc.assoc_plain(*search, kind)
+    faults, err, _ = assoc_faults(search, kind, idx, d2)
+    if faults:
+        fail(f"K4 assoc ({tag}, {kind}) differs from its plain version: {faults}")
+    work = k4_work(search, idx)
+    b_ms, b_by = bound(nbytes(*(a for a in search if a is not None), idx, d2), 10 * work)
+    Q, N = search[0].shape[-2], search[1].shape[-2]
+    return {"shape": f"{Q}x{N}", "kind": kind, "gated": search[4] is not None,
+            "pairs": work, "out_bytes": nbytes(idx, d2),
+            "valid_refs": int(search[2].sum()), "max_abs_err": err,
+            "same_idx": float((idx == plain[0]).float().mean()),
+            "ms": cuda_ms(torch, kernel, 20), "call_ms": call_ms(torch, kernel, 20),
+            "plain_ms": cuda_ms(torch, lambda: assoc.assoc_plain(*search, kind), 3),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_k4(torch, cfg, scans, fcfg, hcfg, hscans, dev):
+    """K4 on the odometry's own searches of a steady scan: the VLP-16 slice
+    (corner, and the knn surf search gated), FAITHFUL's (the tri search
+    ungated) and the HDL-64E path's; then each search stacked to the
+    benchmark's fleets (B = 256 VLP-16, 64 HDL-64E sequences), one launch,
+    timed beside its bound."""
+    from lego_loam_tpu_torch.models import pipeline as pl
+    from lego_loam_tpu_torch.ops import assoc
+
+    rows = []
+    for tag, c, sc, B in (("vlp16", cfg, scans[:4], 256),
+                          ("faithful", fcfg, scans[:4], 256),
+                          ("hdl64e", hcfg, hscans[:3], 64)):
+        with capture_kernel_inputs(torch, dev) as cap:
+            pipe = pl.LegoLoamPipeline(c, dev)
+            for s in device_scans(torch, c, sc, dev):
+                pipe.process_scan(*s)
+        del pipe
+        # each kind's last search: the last scan's 5th round
+        for kind, search in {kind: search for search, kind in cap.pop("k4")}.items():
+            if tag == "faithful" and kind == "corner":
+                continue
+            r = k4_case(torch, search, kind, tag)
+            batch = tuple(None if a is None else a.expand(B, *a.shape).contiguous()
+                          for a in search)
+
+            def fleet(batch=batch, kind=kind):
+                return assoc.assoc(*batch[:4], kind, *batch[4:])
+            r.update(tag=tag, fleet_B=B, fleet_ms=cuda_ms(torch, fleet, 10),
+                     fleet_bound_ms=bound(nbytes(*(a for a in batch if a is not None))
+                                          + B * r["out_bytes"], 10 * B * r["pairs"])[0])
+            del batch
+            rows.append(r)
+            print(f"  K4 assoc {tag} {kind} ({r['shape']}, gate {r['gated']}, "
+                  f"{r['valid_refs']} valid refs): kernel {r['ms']:.4f} ms (call "
+                  f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                  f"{100 * r['bound_ms'] / r['ms']:.2f} % of it; identical indices "
+                  f"{100 * r['same_idx']:.2f} %, max|d2 err| {r['max_abs_err']:.3g}; at "
+                  f"B = {B}: {r['fleet_ms']:.4f} ms, bound {r['fleet_bound_ms']:.5f} ms, "
+                  f"{100 * r['fleet_bound_ms'] / r['fleet_ms']:.2f} % of it")
+    main = next(r for r in rows if r["tag"] == "vlp16" and r["kind"] == "knn")
+    return {
+        "name": "assoc", "key": "assoc", "route": "cuda",
+        "source": "lego_loam_tpu_torch/csrc/assoc.cu",
+        "replaces": "none (the JAX package's jnp searches, "
+                    "lego_loam_tpu/models/odometry.py:91-185)",
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **{k: main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "shapes": rows,
+    }, (f"ms/plain_ms at the slice's knn surf search {main['shape']}; "
+        + "; ".join(f"{r['tag']} {r['kind']} {r['ms']:.4f} / {r['plain_ms']:.4f} ms"
+                    for r in rows if r is not main))
 
 
 def feeder(dscans, stamps=None, imu=None):
@@ -1432,7 +1561,8 @@ def check_e1(torch, cfg, captured, dev, n=6):
     sweeps1 = int(eig6.eig6(H1[None], th1)[2][0])
     b_ms, b_by = e1_bound(sweeps1, n)
     out = {
-        "name": "eig6" if n == 6 else f"eig6_{n}x{n}", "route": "cuda",
+        "name": "eig6" if n == 6 else f"eig6_{n}x{n}",
+        "key": "eig6" if n == 6 else f"eig6_{n}x{n}", "route": "cuda",
         "source": "lego_loam_tpu_torch/csrc/eig6.cu",
         "replaces": "lego_loam_tpu/models/odometry.py:340",
         "note": "no TPU kernel: _degeneracy_projection's jnp.linalg.eigh, which "
@@ -1886,19 +2016,21 @@ def capture_batched(torch, fn, B):
     """Runs fn() with each kernel's launcher wrapped to keep a copy of the
     inputs of its last launch on a batch of B (by shape, and for E1 by
     threshold); returns {name: [args, ...]}."""
-    from lego_loam_tpu_torch.ops import eig6, features, knn, segmentation
+    from lego_loam_tpu_torch.ops import assoc, eig6, features, knn, segmentation
 
     kept = {}
     spots = ((segmentation, "_launch_label_prop", lambda a: a[0].dim() == 3),
              (features, "_launch_label_features", lambda a: a[0].dim() == 3),
              (knn, "_launch_knn", lambda a: a[0].dim() == 3),
-             (eig6, "eig6", lambda a: a[0].shape[0] == B))
+             (eig6, "eig6", lambda a: a[0].shape[0] == B),
+             (assoc, "_launch_assoc", lambda a: a[0].dim() == 3))
     origs = [getattr(mod, name) for mod, name, _ in spots]
 
     def keeper(name, orig, batched):
         def wrapped(*args):
             if batched(args):
-                key = (tuple(args[0].shape), args[-1] if name == "eig6" else None)
+                key = (tuple(args[0].shape), args[-1] if name in ("eig6", "_launch_assoc")
+                       else None)
                 kept.setdefault(name, {})[key] = [
                     a.clone() if isinstance(a, torch.Tensor) else a for a in args]
             return orig(*args)
@@ -2024,7 +2156,40 @@ def check_fleet_kernels(torch, cfg, captured, B):
                          bound_ms=ms_b, bound_by=by))
     rows.sort(key=lambda x: x["thresh"])
     out["eig6"] = dict(rows[0], shapes=rows[1:])
+    out["assoc"] = fleet_k4(torch, captured["_launch_assoc"], B)
     return out
+
+
+def fleet_k4(torch, captured, B):
+    """K4's batched launches of the fleet path (its corner and surf
+    searches at B), each sequence held as tests/torch_courses.assoc_faults
+    holds one search, timed beside its plain version a sequence at a time
+    and the batch's bound; the largest shape first."""
+    from lego_loam_tpu_torch.ops import assoc
+    from tests.torch_courses import assoc_faults
+
+    rows = []
+    for args in captured:
+        kind = args[-1]
+        seqs = [[None if a is None else a[b] for a in args[:6]] for b in range(B)]
+        idx, d2 = assoc._launch_assoc(*args)
+        err = 0.0
+        for b, search in enumerate(seqs):
+            faults, e, _ = assoc_faults(search, kind, idx[b], d2[b])
+            if faults:
+                fail(f"K4's batched launch ({kind}) differs from its plain version on "
+                     f"sequence {b}: {faults}")
+            err = max(err, e)
+        ops = 10 * sum(k4_work(search, idx[b]) for b, search in enumerate(seqs))
+        b_ms, b_by = bound(nbytes(*(a for a in args[:6] if a is not None), idx, d2), ops)
+        rows.append(dict(
+            shape=f"{B}x{args[0].shape[1]}x{args[1].shape[1]} {kind}", max_abs_err=err,
+            ms=cuda_ms(torch, lambda: assoc._launch_assoc(*args), 20),
+            plain_ms=cuda_ms(torch, lambda: [assoc.assoc_plain(*search, kind)
+                                             for search in seqs], 2),
+            bound_ms=b_ms, bound_by=b_by, q_n=args[0].shape[1] * args[1].shape[1]))
+    rows.sort(key=lambda x: -x.pop("q_n"))
+    return dict(rows[0], shapes=rows[1:])
 
 
 def run_fleet_loop(torch, lccfg, dev):
@@ -2165,10 +2330,9 @@ def fleet_phase(torch, cfg, scans, poses, lccfg, results, card, dev):
 
     fk = check_fleet_kernels(torch, cfg, capture_batched(torch, capture_run, FLEET_B),
                              FLEET_B)
-    for r, key in zip(results, ("propagate_labels", "label_features", "knn", "eig6")):
-        r["fleet_launches"] = fleet["runs"][FLEET_B]["launches"][key]
-        r["fleet"] = fk[key]
-        k = fk[key]
+    for r in kernel_rows(results):
+        r["fleet_launches"] = fleet["runs"][FLEET_B]["launches"][r["key"]]
+        r["fleet"] = k = fk[r["key"]]
         print(f"fleet [{card}]: {r['name']} batched at {k['shape']}: kernel "
               f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, max|err| "
               f"{k['max_abs_err']:.3g}, bound {k['bound_ms']:.6f} ms "
@@ -2274,7 +2438,7 @@ def _parallel_checks(torch, cfg, scans, rows, n_kf, mapping_ms, lcfg, lscans,
     if (solo.size, nccl.size) != (1, 1) or nccl.group is None:
         fail(f"the NCCL world has {solo.size} ranks, not 1")
     out = {"backend": str(dist.get_backend()), "world_size": solo.size}
-    knn_row = results[2]
+    knn_row = row_of(results, "knn")
     query, ref, ref_valid = knn_row.pop("_surf_inputs")
 
     # 1. K3 at the shard shapes of knn_sharded over W ranks: each rank holds
@@ -2445,8 +2609,8 @@ def _parallel_checks(torch, cfg, scans, rows, n_kf, mapping_ms, lcfg, lscans,
     if lo["host_syncs_per_check"] != [1] * len(closed):
         fail(f"host syncs per sharded loop check {loop_syncs}, not 1 each")
 
-    for r, key in zip(results, ("propagate_labels", "label_features", "knn", "eig6")):
-        r["parallel_launches"] = launches[key]
+    for r in kernel_rows(results):
+        r["parallel_launches"] = launches[r["key"]]
     knn_row["launches_per_sharded_solve"] = max(knn_per_step)
     return out
 
@@ -2599,7 +2763,7 @@ def trace_phase(torch, dev, work):
     utils/tracing.trace, last in the run (a profiler session can leave the
     process's later launches slower, and in a run that traced it before the
     profiler phase, that phase's first K2 session saw no device work): held
-    as the --loop run is, and its Chrome trace must name the four kernels'
+    as the --loop run is, and its Chrome trace must name the five kernels'
     custom ops."""
     from lego_loam_tpu_torch.examples import run_synthetic
     from lego_loam_tpu_torch.utils.tracing import trace
@@ -2634,14 +2798,14 @@ def capture_kernel_inputs(torch, dev):
     """Keeps a copy of the inputs of every kernel call on `dev` (a CPU run
     beside is left out) while the block runs: K1's label_inputs, K2's
     packed scan and config (extract_features), K3's search (the mapping
-    solve's and the loop check's), E1's H and threshold.  Yields the dict
-    of lists."""
+    solve's and the loop check's), E1's H and threshold, K4's search and
+    kind.  Yields the dict of lists."""
     from lego_loam_tpu_torch.models import mapping as mp
     from lego_loam_tpu_torch.models import odometry as odo
     from lego_loam_tpu_torch.models import pipeline as pl
     from lego_loam_tpu_torch.ops import icp, segmentation
 
-    kept = {"k1": [], "k2": [], "k3": [], "e1": []}
+    kept = {"k1": [], "k2": [], "k3": [], "e1": [], "k4": []}
 
     def clone(x):
         return x.detach().clone() if isinstance(x, torch.Tensor) else x
@@ -2651,7 +2815,8 @@ def capture_kernel_inputs(torch, dev):
 
     orig = {"label_inputs": segmentation.label_inputs,
             "extract_features": pl.extract_features, "map_knn": mp.knn,
-            "icp_knn": icp.knn, "degeneracy_projection": odo.degeneracy_projection}
+            "icp_knn": icp.knn, "degeneracy_projection": odo.degeneracy_projection,
+            "assoc": odo.assoc}
 
     def label_inputs(*a):
         out = orig["label_inputs"](*a)
@@ -2676,10 +2841,17 @@ def capture_kernel_inputs(torch, dev):
             kept["e1"].append((clone(H), float(thresh)))
         return orig["degeneracy_projection"](H, thresh)
 
+    def assoc(query, ref, ref_valid, ref_ring, kind, query_ground=None, ref_ground=None):
+        search = (query, ref, ref_valid, ref_ring, query_ground, ref_ground)
+        if on_card(*search):
+            kept["k4"].append((tuple(clone(t) for t in search), kind))
+        return orig["assoc"](*search[:4], kind, *search[4:])
+
     segmentation.label_inputs = label_inputs
     pl.extract_features = extract_features
     mp.knn, icp.knn = knn_of("map_knn"), knn_of("icp_knn")
     odo.degeneracy_projection = degeneracy_projection
+    odo.assoc = assoc
     try:
         yield kept
     finally:
@@ -2687,6 +2859,7 @@ def capture_kernel_inputs(torch, dev):
         pl.extract_features = orig["extract_features"]
         mp.knn, icp.knn = orig["map_knn"], orig["icp_knn"]
         odo.degeneracy_projection = orig["degeneracy_projection"]
+        odo.assoc = orig["assoc"]
 
 
 def all_finite(torch, *ts) -> bool:
@@ -2723,7 +2896,7 @@ def robust_courses(torch, cfg, courses, dev, tag):
                      f"not under {IDENTICAL_BOUND} m")
     launches = {w.__name__: w.launches for w in wrappers}
     launches.update(mode_counts())
-    for key in ("propagate_labels", "label_features", "knn", "eig6"):
+    for key in KERNEL_KEYS:
         if launches[key] == 0:
             fail(f"robustness ({tag}): kernel {key} was not launched on the "
                  f"degenerate courses")
@@ -2890,11 +3063,47 @@ def robust_kernel_checks(torch, cap, full, dev):
         "ms": cuda_ms(torch, lambda: eig6.degeneracy_projection(Hz, th), 200),
         "plain_ms": cuda_ms(torch, lambda: eig6.degeneracy_projection_plain(Hz, th), 50),
         "bound_ms": b_ms, "bound_by": b_by, "sweeps": sweeps, "input": "H = 0"}
+    out["assoc"] = robust_k4(torch, cap["k4"])
     for key, row in out.items():
         print(f"  robustness: {key} on degenerate inputs: "
               + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
                           for k, v in row.items()))
     return out
+
+
+def robust_k4(torch, captured):
+    """K4 on every search captured from the degenerate courses (references
+    of empty and one-point scans, NaN and 1e8 m points among the queries),
+    held by tests/torch_courses.assoc_faults; timed on a search with the
+    fewest valid references."""
+    from lego_loam_tpu_torch.ops import assoc
+    from tests.torch_courses import assoc_faults
+
+    err, n_empty, n_nan, worst = 0.0, 0, 0, None
+    for search, kind in captured:
+        idx, d2 = assoc.assoc(*search[:4], kind, *search[4:])
+        faults, e, _ = assoc_faults(search, kind, idx, d2)
+        if faults:
+            fail(f"K4 assoc ({kind}) differs from its plain version on a degenerate "
+                 f"scan: {faults}")
+        err = max(err, e)
+        nv = int(search[2].sum())
+        n_empty += nv == 0
+        n_nan += int(torch.isnan(search[0]).any(1).sum())
+        if worst is None or nv < int(worst[0][2].sum()):
+            worst = (search, kind)
+    if not n_empty:
+        fail("the degenerate courses gave K4 no search against an empty reference set")
+    search, kind = worst
+    b_ms, b_by = bound(nbytes(*(a for a in search if a is not None))
+                       + search[0].shape[0] * 40, 0)
+    return {
+        "searches": len(captured), "empty_refs": n_empty, "nan_query_rows": n_nan,
+        "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: assoc.assoc(*search[:4], kind, *search[4:]), 50),
+        "plain_ms": cuda_ms(torch, lambda: assoc.assoc_plain(*search, kind), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "input": f"{kind}, {search[0].shape[0]} x {search[1].shape[0]}, no valid reference"}
 
 
 def robustness_phase(torch, dev, card):
@@ -3144,6 +3353,14 @@ def main() -> None:
     del bimgs
     results.append(check_e1(torch, fcfg, capture_eig6_inputs(torch, fcfg, scans[:7], dev),
                             dev, n=3))
+    # K4 on the odometry's own searches (the slice's, FAITHFUL's and the
+    # HDL-64E path's), and stacked to the benchmark's fleets
+    r, note = check_k4(torch, cfg, scans, fcfg, hcfg, hscans, dev)
+    print(f"  {r['name']}: kernel {r['ms']:.4f} ms (call {r['call_ms']:.4f} ms), plain "
+          f"{r['plain_ms']:.4f} ms, max|err| {r['max_abs_err']:.3g}, bound "
+          f"{r['bound_ms']:.5f} ms ({r['bound_by']}), "
+          f"{100 * r['bound_ms'] / r['ms']:.2f} % of bound ({note})")
+    results.append(r)
 
     clock("the slice")
     sl = run_slice(torch, cfg, scans, poses, dev)
@@ -3157,8 +3374,8 @@ def main() -> None:
     print(f"slice: host syncs per scan {sl['host_syncs_per_scan']}, by "
           f"call site over those scans: {sl['sync_sites']}")
     print(f"slice: kernel launches {sl['launches']}")
-    for r, key in zip(results, ("propagate_labels", "label_features", "knn", "eig6")):
-        r["launches"] = sl["launches"][key]
+    for r in kernel_rows(results):
+        r["launches"] = sl["launches"][r["key"]]
         if r["launches"] == 0:
             fail(f"kernel {r['name']} was not launched on the main path")
     if not np.isfinite(sl["ate_m"]) or sl["ate_m"] >= ATE_BOUND:
@@ -3237,8 +3454,8 @@ def main() -> None:
                   f"{export['dump_keyframe']}; dump_stages on the card "
                   f"{export['dump_stages']}; native reader {export['native']}")
         del pipe_c, res_c
-    for r, key in zip(results, ("propagate_labels", "label_features", "knn", "eig6")):
-        r["launches_in_chunks"] = chunk["stats"]["launches"][key]
+    for r in kernel_rows(results):
+        r["launches_in_chunks"] = chunk["stats"]["launches"][r["key"]]
     # collect_stats=False on process_scan: no host sync at all
     nopipe = pl.LegoLoamPipeline(cfg, dev, collect_stats=False)
     quiet = [len(catch_syncs(torch, lambda s=s: nopipe.process_scan(*s))[1])
@@ -3252,9 +3469,9 @@ def main() -> None:
     # the reference-faithful configuration at full width
     clock("the faithful path")
     faithful = faithful_phase(torch, fcfg, scans, poses, dev)
-    for r in results[4:]:
-        r["launches"] = faithful["mode_launches"][r["name"]]
-        r["launches_in_chunks"] = faithful["chunk"]["mode_launches"][r["name"]]
+    for r in mode_rows(results):
+        r["launches"] = faithful["mode_launches"][r["key"]]
+        r["launches_in_chunks"] = faithful["chunk"]["mode_launches"][r["key"]]
 
     clock("the HDL-64E path")
     hl = run_slice(torch, hcfg, hscans, hposes, dev, HDL_WARM, HDL_SYNC)
@@ -3316,7 +3533,7 @@ def main() -> None:
     if not lp["final_err_m"] < LOOP_FINAL_BOUND:
         fail(f"loop path final pose {lp['final_err_m']:.4f} m from the truth, "
              f"not under {LOOP_FINAL_BOUND} m")
-    knn_row = results[2]
+    knn_row = row_of(results, "knn")
     knn_row["loop_shapes"] = check_k3_loop(torch, icp_in)
     knn_row["max_abs_err"] = max([knn_row["max_abs_err"]] + [
         v["err"] for v in knn_row["loop_shapes"].values()])
@@ -3480,16 +3697,16 @@ def main() -> None:
     # false positives, stress courses (ROADMAP A20)
     clock("robustness")
     rob = robustness_phase(torch, dev, card)
-    for r, key in zip(results, ("propagate_labels", "label_features", "knn", "eig6")):
-        r["robustness_launches"] = rob["launches"]["full"][key]
+    for r in kernel_rows(results):
+        r["robustness_launches"] = rob["launches"]["full"][r["key"]]
         r["robustness"] = rob["kernels"][r["name"]]
-    for r in results[4:]:
-        r["robustness_launches"] = rob["launches"]["faithful"][r["name"]]
+    for r in mode_rows(results):
+        r["robustness_launches"] = rob["launches"]["faithful"][r["key"]]
     print(f"robustness [{card}]: the phase took {rob['seconds']:.1f} s")
 
     # profiler phases last: they must not slow the timed ones
     clock("the profiler")
-    k2_device_kernels(torch, results[1])
+    k2_device_kernels(torch, row_of(results, "label_features"))
     sl["profile"] = pr = profile_scans(torch, cfg, scans, dev)
     print(f"slice: torch.profiler over {pr['scans']} steady scans: "
           f"{pr['device_events_per_scan']:.0f} device events a scan, device "
@@ -3534,24 +3751,25 @@ def main() -> None:
     # last: a driver under utils/tracing.trace
     clock("the traced driver")
     drivers["run_synthetic --imu, traced"] = trace_phase(torch, dev, work.name)
-    for r, key in zip(results, ("propagate_labels", "label_features", "knn", "eig6")):
-        r["drivers_launches"] = {tag: d["launches"][key] for tag, d in drivers.items()
-                                 if "launches" in d}
+    for r in kernel_rows(results):
+        r["drivers_launches"] = {tag: d["launches"][r["key"]]
+                                 for tag, d in drivers.items() if "launches" in d}
 
     clock(None)
     work.cleanup()
     print(json.dumps({"slice": sl, "hdl64e": hl, "loop": lp, "imu": arms,
                       "chunk": chunk, "export": export, "card_vs_cpu": c6,
                       "faithful": faithful, "oracle": oracle, "parallel": par,
-                      "k2_sequential_hdl64e": results[4]["hdl64e"],
-                      "e1_3x3": {k: results[5][k] for k in (
+                      "k2_sequential_hdl64e":
+                          row_of(results, "label_features_sequential")["hdl64e"],
+                      "e1_3x3": {k: row_of(results, "eig6_3x3")[k] for k in (
                           "call_ms", "library_call_ms", "sweeps", "matrices",
                           "captured", "near_threshold_flips", "max_sweeps")},
                       "fleet": fleet, "drivers": drivers, "robustness": rob,
                       "phase_s": clock.seconds,
-                      "k1_presets": results[0]["presets"],
-                      "k2_hdl64e": results[1]["hdl64e"],
-                      "e1": {k: results[3][k] for k in (
+                      "k1_presets": row_of(results, "propagate_labels")["presets"],
+                      "k2_hdl64e": row_of(results, "label_features")["hdl64e"],
+                      "e1": {k: row_of(results, "eig6")[k] for k in (
                           "call_ms", "library_call_ms", "sweeps", "matrices",
                           "captured", "near_threshold_flips", "max_sweeps")},
                       "card": card}))
@@ -3563,7 +3781,8 @@ def main() -> None:
                                  "launches_in_chunks", "fleet_launches",
                                  "fleet", "shard_shapes", "parallel_launches",
                                  "launches_per_sharded_solve", "drivers_launches",
-                                 "robustness_launches", "robustness", "note")
+                                 "robustness_launches", "robustness", "shapes",
+                                 "note")
          if key in r}
         for r in results]}))
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,9 @@ _SIGNATURES = {
     "lego_knn": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # H, thresh, P, lam, sweeps, B, n, stream
     "lego_eig6": [_P, ctypes.c_float, _P, _P, _P, _I, _I, _P],
+    # query, ref, ref_valid, ref_ring, query_ground, ref_ground, B, Q, N,
+    # n_same, n_adj, split, idx, d2, stream
+    "lego_odom_assoc": [_P] * 6 + [_I] * 6 + [_P] * 3,
 }
 
 _lib: ctypes.CDLL | None = None

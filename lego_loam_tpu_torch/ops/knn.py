@@ -2,7 +2,8 @@
 counterpart of ``lego_loam_tpu.ops.knn``).
 
 Dense brute force: ||q - r||^2 = |q|^2 + |r|^2 - 2 q.r, then a masked
-argmin (odometry associations) or an exact k-NN (map 5-NN).  The exact
+argmin (the plain path of the odometry's search, ops/assoc.py) or an exact
+k-NN (map 5-NN).  The exact
 k-NN is kernel K3 (``csrc/knn.cu``) on a CUDA tensor; on a CPU tensor it is
 the distance matrix plus the first k columns of a stable sort, which break
 ties to the lowest index like ``lax.top_k`` (over the valid references and

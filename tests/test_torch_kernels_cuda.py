@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions, on the card.
+"""The five CUDA kernels against their plain PyTorch versions, on the card.
 
 Skipped without a CUDA device (the `cuda` marker; decided inside the
 fixture).  Run on a machine with an H100:
@@ -34,6 +34,22 @@ VLP-16 and 3 HDL-64E scans in one launch, in either pick order; K3 on 8
 searches at the mapping
 and loop shapes in one launch, each equal to its own launch bit for bit;
 E1 on 4 stacks of spectra in one launch without a host sync.
+K4 (the odometry's correspondence search, ops/assoc.py) in each kind
+(corner; tri and knn with the class gate off and on) on
+tests/torch_courses.assoc_case's searches (16 and 64 rings, an empty
+category, a category of one, duplicate points, invalid and all-invalid
+references, NaN query rows, Q and N off the block and tile sizes) and at
+the pipelines' shapes (256 x 2048, 512 x 4096, 1024 x 4096, 2048 x
+8192, and HDL-64E's own 1024 x 8192 and 2048 x 16384): where the plain
+path's best and second best in a slot lie more than 1e-4 apart the
+indices are equal, elsewhere each pick satisfies its
+slot's predicate (from the kernel's own earlier picks) within rtol 1e-4 /
+atol 1e-3 of the category's minimum, a duplicate never wins over its
+lower index, an empty category gives (0, 1e30), a NaN row the plain
+path's picks; 2 to 32 lanes a query (a single sequence's search) equal
+one lane bit for bit on those searches and at 512 x 4096; one vmapped
+call of 8 sequences is one launch, equal to 8 launches bit for bit, and
+allocates no (B, Q, N) matrix.
 chip_smoke.py runs the same checks at the main path's full shapes.
 
 Beside the kernels: the voxel centroids (ops/voxel.py's fixed-point sums)
@@ -46,7 +62,7 @@ import torch
 
 from lego_loam_tpu_torch import config_for
 from lego_loam_tpu_torch.io import synthetic as syn
-from lego_loam_tpu_torch.ops import eig6, features, knn, segmentation
+from lego_loam_tpu_torch.ops import assoc, eig6, features, knn, segmentation
 from lego_loam_tpu_torch.ops.compaction import segment_scan
 from lego_loam_tpu_torch.ops.ground import mark_ground
 from lego_loam_tpu_torch.ops.projection import project_scan
@@ -57,7 +73,8 @@ from tests.test_torch_feature_rows import (THRESHOLD_CFGS, built_rows,
 from tests.test_torch_label_prop import (CASES, SHAPES, label_args,
                                          label_case, reference_labels)
 from tests.test_torch_sensor_rows import mid_row
-from tests.torch_courses import eig6_spectra
+from tests.torch_courses import (ASSOC_CASES, assoc_case, assoc_cloud, assoc_faults,
+                                 eig6_spectra)
 
 pytestmark = pytest.mark.cuda
 CFG = config_for("vlp16")
@@ -479,3 +496,104 @@ def test_voxel_centroids_repeat_bit_for_bit(dev, spread):
     for a in runs:
         assert torch.equal(a[0].cpu(), host[0]) and torch.equal(a[1].cpu(), host[1])
     assert int(host[1].sum()) > 1000
+
+
+# ---------------------------------------------------------------- K4
+
+# kinds and class gates the odometry runs: the corner search never gated
+ASSOC_KINDS = [("corner", False), ("tri", False), ("tri", True), ("knn", False),
+               ("knn", True)]
+# (Q, N, rings) of the pipelines' searches: VLP-16 corner and surf, and
+# HDL-64E's at 16 rings' capacities and at its own (4x, config_for)
+ASSOC_SHAPES = [(256, 2048, 16), (512, 4096, 16), (1024, 4096, 64), (2048, 8192, 64),
+                (1024, 8192, 64), (2048, 16384, 64)]
+
+
+def _assoc_matches_plain(dev, arrays, kind, gate):
+    search = [torch.as_tensor(a, device=dev) for a in arrays]
+    if not gate:
+        search[4:] = None, None
+    n = assoc.assoc.launches
+    idx, d2 = assoc.assoc(*search[:4], kind, *search[4:])
+    assert assoc.assoc.launches == n + 1
+    faults, _, dup = assoc_faults(search, kind, idx, d2)
+    assert not faults, faults
+    return dup
+
+
+@pytest.mark.parametrize("kind,gate", ASSOC_KINDS,
+                         ids=[f"{k}-{'gated' if g else 'ungated'}" for k, g in ASSOC_KINDS])
+@pytest.mark.parametrize("case", ASSOC_CASES)
+def test_assoc_kernel_matches_plain(dev, case, kind, gate):
+    dup = _assoc_matches_plain(dev, assoc_case(case, seed=3), kind, gate)
+    assert bool(dup) == (case == "duplicates")
+
+
+@pytest.mark.parametrize("kind,gate", ASSOC_KINDS,
+                         ids=[f"{k}-{'gated' if g else 'ungated'}" for k, g in ASSOC_KINDS])
+@pytest.mark.parametrize("q_n,r_n,rings", ASSOC_SHAPES,
+                         ids=[f"{q}x{n}" for q, n, _ in ASSOC_SHAPES])
+def test_assoc_kernel_at_pipeline_shapes(dev, q_n, r_n, rings, kind, gate):
+    _assoc_matches_plain(dev, assoc_cloud(rings, r_n // rings, q_n, seed=q_n + r_n),
+                         kind, gate)
+
+
+@pytest.mark.parametrize("split", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("case", ASSOC_CASES + ("512x4096",))
+def test_assoc_lanes_a_query_agree(dev, case, split):
+    """K4 with `split` lanes a query (the lanes' picks merged by shuffles,
+    as a single sequence's search runs) equals one lane a query bit for bit,
+    in every kind the odometry runs."""
+    arrays = (assoc_cloud(16, 256, 512, seed=5) if case == "512x4096"
+              else assoc_case(case, seed=3))
+    search = [torch.as_tensor(a, device=dev) for a in arrays]
+    for kind, gate in ASSOC_KINDS:
+        s = search if gate else search[:4] + [None, None]
+        i1, v1 = assoc._launch_assoc(*s, kind, split=1)
+        i2, v2 = assoc._launch_assoc(*s, kind, split=split)
+        assert torch.equal(i1, i2), (kind, gate)
+        assert torch.equal(v1.nan_to_num(-1.0), v2.nan_to_num(-1.0)), (kind, gate)
+
+
+@pytest.mark.parametrize("kind,gate", [("corner", False), ("knn", True)])
+def test_assoc_batched_launch(dev, kind, gate):
+    """K4 under torch.func.vmap, B = 8 searches at the HDL-64E surf shape
+    (2048 x 16384): one launch, each search equal to its own launch bit for
+    bit, and no (B, Q, N) or (Q, N) matrix: the peak grows by far less than
+    one 8 x 2048 x 8192 float matrix (512 MB)."""
+    B, (q_n, r_n, rings) = 8, ASSOC_SHAPES[-1]
+    cases = [assoc_cloud(rings, r_n // rings, q_n, seed=b) for b in range(B)]
+    q, r, v, ring, qg, rg = (torch.as_tensor(np.stack(a), device=dev)
+                             for a in zip(*cases))
+    if not gate:
+        qg = rg = None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    n = assoc.assoc.launches
+    if gate:
+        idx, d2 = torch.func.vmap(lambda *a: assoc.assoc(*a[:4], kind, *a[4:]))(
+            q, r, v, ring, qg, rg)
+    else:
+        idx, d2 = torch.func.vmap(lambda *a: assoc.assoc(*a, kind))(q, r, v, ring)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated(dev) - base
+    assert assoc.assoc.launches == n + 1
+    assert grew < 16 * 2**20, grew
+    for b in range(B):
+        i1, v1 = assoc.assoc(q[b], r[b], v[b], ring[b], kind,
+                             *((qg[b], rg[b]) if gate else ()))
+        assert torch.equal(idx[b], i1) and torch.equal(d2[b], v1), b
+
+
+def test_assoc_wrapper_rejects_bad_inputs(dev):
+    q, r, v, ring, qg, rg = (torch.as_tensor(a, device=dev)
+                             for a in assoc_case("rings16"))
+    with pytest.raises(ValueError, match="ref_ring"):
+        assoc.assoc(q, r, v, ring.long(), "tri")
+    with pytest.raises(ValueError, match="query"):
+        assoc.assoc(q.double(), r, v, ring, "tri")
+    with pytest.raises(ValueError, match="Q, N"):
+        assoc.assoc(q[:0], r, v, ring, "knn")
+    with pytest.raises(ValueError, match="ground"):
+        assoc.assoc(q, r, v, ring, "knn", qg.int(), rg)

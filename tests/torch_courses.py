@@ -26,6 +26,11 @@ same configs over the same seeded synthetic scans.
   * E1: seeded symmetric 6x6 or 3x3 systems for the degeneracy
     projection (eig6_spectra), every eigenvalue well away from the
     threshold.
+  * K4: seeded reference clouds stored ring by ring as the odometry's
+    feature clouds are, with queries near them (assoc_cloud), and the
+    correspondence search's edge cases (assoc_case: an empty category, a
+    category of one, duplicate points, invalid and all-invalid
+    references, NaN query rows, a ragged shape).
   * A20, the JAX package's behaviour tests: ROBUST and
     robustness_course() are tests/test_robustness.py's config and its four
     degenerate courses (ROBUST_COURSES); loop_robust_cfg(), CORRIDOR_START,
@@ -318,6 +323,176 @@ def write_kitti_sequence(root: str, scans, poses) -> str:
     path = os.path.join(root, "poses.txt")
     np.savetxt(path, np.stack(rows))
     return path
+
+
+# ---------------------------------------------------------------- K4
+
+ASSOC_CASES = ("rings16", "rings64", "empty_category", "one_candidate",
+               "duplicates", "invalid", "all_invalid", "nan_query", "ragged")
+
+
+def assoc_cloud(rings: int, per_ring: int, n_q: int, seed: int,
+                valid_frac: float = 0.85):
+    """A search of the odometry's association: references stored ring by
+    ring as the feature clouds are (ring r at its own elevation, in
+    azimuth order, its valid points first and padding after), queries
+    within a few decimetres of random valid references.  Returns numpy
+    (query (Q, 3) f32, ref (N, 3) f32, ref_valid (N,), ref_ring (N,)
+    int32, query_ground (Q,), ref_ground (N,)); the ground labels are the
+    lower rings' with 10 % flipped."""
+    rng = np.random.default_rng(seed)
+    N = rings * per_ring
+    ring = np.repeat(np.arange(rings, dtype=np.int32), per_ring)
+    az = np.sort(rng.uniform(-np.pi, np.pi, (rings, per_ring)), axis=1).ravel()
+    elev = np.deg2rad(-15.0 + 30.0 * ring / max(rings - 1, 1))
+    dist = rng.uniform(3.0, 40.0, N)
+    ref = np.stack([dist * np.cos(elev) * np.cos(az), dist * np.cos(elev) * np.sin(az),
+                    1.6 + dist * np.sin(elev)], 1).astype(np.float32)
+    n_ok = rng.binomial(per_ring, valid_frac, rings)
+    valid = (np.arange(per_ring)[None, :] < n_ok[:, None]).ravel()
+    ref_ground = (ring < rings // 3) ^ (rng.random(N) < 0.1)
+    pool = np.flatnonzero(valid) if valid.any() else np.arange(N)
+    near = rng.choice(pool, n_q)
+    query = (ref[near] + rng.normal(0.0, 0.2, (n_q, 3))).astype(np.float32)
+    query_ground = ref_ground[near] ^ (rng.random(n_q) < 0.1)
+    return query, ref, valid, ring, query_ground, ref_ground
+
+
+def assoc_case(name: str, seed: int = 0):
+    """The search `name` of ASSOC_CASES (assoc_cloud's arrays): random
+    clouds of 16 and 64 rings; all references in one ring (no adjacent
+    ring: slots 3-4 empty); a ring of many and one 2 rings away (a
+    category of one candidate, and one-point rings); points copied to a
+    second index in the same ring and in the next, and a pair in the ring
+    beside the queries' nearest point (ties go to the lower index); 70 %
+    and 100 % invalid references; NaN query rows; Q = 130 and N = 2050 (41
+    rings), off every block and tile size."""
+    if name == "rings64":
+        return assoc_cloud(64, 12, 96, seed)
+    if name == "ragged":
+        return assoc_cloud(41, 50, 130, seed)
+    q, r, v, ring, qg, rg = assoc_cloud(16, 40, 96, seed)
+    if name == "empty_category":
+        ring = np.zeros_like(ring)
+    elif name == "one_candidate":
+        ring = np.where(ring < 8, 0, 5).astype(np.int32)
+        v = v & ((ring == 0) | (np.arange(ring.size) == np.flatnonzero(ring == 5)[0]))
+        ring[ring == 5] = 2
+        q[:8] = r[np.flatnonzero(ring == 2)[0]]
+    elif name == "duplicates":
+        ok = np.flatnonzero(v)
+        a, b = ok[3], ok[ok > 3 + 40][-1]          # b later than a's ring
+        r[b] = r[a]
+        ring[b] = ring[a]
+        c, d = ok[50], ok[-5]
+        r[d] = r[c]
+        ring[d] = ring[c] + 1
+        q[:6] = r[[a, a, c, c, a, c]]
+        q[6:10] = r[[a, c, a, c]] + np.float32(0.01)
+        # a pair in the ring next to the queries' nearest point: slots 3-4
+        e, f, g = ok[100], ok[-20], ok[60]
+        r[f], ring[f] = r[e], ring[e]
+        r[g], ring[g] = r[e] - np.float32([0.05, 0.0, 0.0]), ring[e] - 1
+        q[10:14] = r[g]
+    elif name == "invalid":
+        v = v & (np.random.default_rng(seed + 1).random(v.size) < 0.3)
+    elif name == "all_invalid":
+        v = np.zeros_like(v)
+    elif name == "nan_query":
+        q[[0, 5, 95]] = np.nan
+    return q, r, v, ring, qg, rg
+
+
+ASSOC_READ = {"corner": (0, 3), "tri": (0, 1, 3), "knn": (0, 1, 2, 3, 4)}
+
+
+def _assoc_slot_masks(cand, ring, picks):
+    """Each slot's candidates (Q, N) given the picks (Q, 5) of the slots
+    before it: slot 0 the gated valid references, 1-2 slot 0's ring
+    without the earlier picks, 3-4 the rings 1 or 2 away."""
+    import torch
+
+    cols = torch.arange(cand.shape[1], device=cand.device)[None, :]
+    dr = ring[None, :] - ring[picks[:, 0]][:, None]
+    same = cand & (dr == 0) & (cols != picks[:, :1])
+    adj = cand & (dr != 0) & (dr.abs() <= 2)
+    return {0: cand, 1: same, 2: same & (cols != picks[:, 1:2]), 3: adj,
+            4: adj & (cols != picks[:, 3:4])}
+
+
+def assoc_faults(search, kind: str, idx, d2):
+    """K4's picks (idx, d2) of one search (query, ref, ref_valid, ref_ring,
+    query_ground, ref_ground; tensors on one device, the labels None
+    without the class gate) held to the plain path (ops/assoc.py):
+    where the plain path's best and second best in a slot lie more than
+    1e-4 apart, the same index; a NaN row, the plain path's index and a
+    NaN; every other pick in its slot's category (from the kernel's own
+    earlier picks) at the category's minimum of the plain version's
+    distances within rtol 1e-4 / atol 1e-3, (0, 1e30) where the category
+    is empty, and never the higher index of two equal points of one ring
+    where the lower is a candidate too; the slots the kind does not read
+    at (0, 1e30).  Returns (the faults, as text; the largest distance gap
+    over real picks; the duplicate pairs seen)."""
+    import torch
+
+    from lego_loam_tpu_torch.ops.assoc import SLOTS, assoc_plain
+    from lego_loam_tpu_torch.ops.knn import sq_dist_matrix
+
+    q, r, v, ring, qg, rg = search
+    pidx, pd2 = assoc_plain(q, r, v, ring, qg, rg, kind)
+    D = sq_dist_matrix(q, r, v)          # the plain version's values
+    cand = v[None, :].expand_as(D)
+    if qg is not None:
+        cand = cand & (rg[None, :] == qg[:, None])
+    ki, pi = idx.long(), pidx.long()
+    km, pm = (_assoc_slot_masks(cand, ring, x) for x in (ki, pi))
+    # equal valid points of one ring, as (lower, higher) index pairs; only
+    # the few points whose key repeats are compared pairwise
+    vi = v.nonzero().flatten()
+    key = torch.cat([r, ring[:, None].float()], 1)[vi]
+    _, inv, cnt = torch.unique(key, dim=0, return_inverse=True, return_counts=True)
+    rep = cnt[inv] > 1
+    di, key = vi[rep], key[rep]
+    lo, hi = (key[:, None] == key[None]).all(-1).triu(1).nonzero().unbind(1)
+    lo, hi = di[lo], di[hi]
+    dup = list(zip(lo.tolist(), hi.tolist()))
+    faults, err = [], 0.0
+    for s in range(SLOTS):
+        if s not in ASSOC_READ[kind]:
+            if idx[:, s].any() or not bool((d2[:, s] == 1e30).all()):
+                faults.append(f"slot {s}, not searched, is not (0, 1e30)")
+            continue
+        row = torch.where(pm[s], D, 1e30)
+        best = row.gather(1, pi[:, s:s + 1])[:, 0]
+        second = row.scatter(1, pi[:, s:s + 1], 1e30).amin(1)
+        clear = (second - best) > 1e-4 * best.abs()
+        if not torch.equal(ki[clear, s], pi[clear, s]):
+            faults.append(f"slot {s}: {int((ki[clear, s] != pi[clear, s]).sum())} "
+                          f"clear winners missed")
+        nan = torch.isnan(pd2[:, s])
+        if not (torch.equal(ki[nan, s], pi[nan, s])
+                and bool(torch.isnan(d2[nan, s]).all())):
+            faults.append(f"slot {s}: NaN rows differ")
+        kmin = torch.where(km[s], D, 1e30).amin(1)
+        none = ~nan & (kmin >= 1e30)
+        if ki[none, s].any() or not bool((d2[none, s] == 1e30).all()):
+            faults.append(f"slot {s}: an empty category is not (0, 1e30)")
+        has = ~nan & ~none
+        picked = km[s].gather(1, ki[:, s:s + 1])[:, 0]
+        tol = 1e-3 + 1e-4 * kmin.abs()
+        got = D.gather(1, ki[:, s:s + 1])[:, 0]
+        bad = has & (~picked | ~((d2[:, s] - kmin).abs() <= tol)
+                     | ~((got - kmin).abs() <= tol))
+        if bool(bad.any()):
+            faults.append(f"slot {s}: {int(bad.sum())} picks off their category's "
+                          f"minimum (first row {int(bad.nonzero()[0, 0])})")
+        if bool(has.any()):
+            err = max(err, float((d2[has, s] - kmin[has]).abs().max()))
+        over = (ki[:, s, None] == hi[None, :]) & km[s][:, lo]
+        if bool(over.any()):
+            faults.append(f"slot {s}: {int(over.any(0).sum())} points taken over "
+                          f"their duplicates at lower indices")
+    return faults, err, dup
 
 
 # ---------------------------------------------------------------- E1
